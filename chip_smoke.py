@@ -2,16 +2,22 @@
 
     python3 chip_smoke.py
 
-Drives `leann_tpu_torch`'s main path (Vamana build -> fused graph
-search) through the entry points a user calls, builds the CUDA kernel
-from `leann_tpu_torch/csrc/`, and holds it against its plain PyTorch
-version. Phases, one JSON line each on stdout:
+Drives `leann_tpu_torch`'s main paths through the entry points a user
+calls (Vamana build -> fused graph search at D % 128 == 0; Vamana build
+-> PQ graph search at 96-d), builds the CUDA kernels from
+`leann_tpu_torch/csrc/` (one nvcc per source, all started together), and
+holds each against its plain PyTorch version. Phases, one JSON line each
+on stdout:
 
   env      torch / CUDA / nvcc versions, the card's name and power limit
-  build    nvcc build of the kernel library (seconds)
+  build    nvcc build of the kernel libraries (seconds)
   kernels  fused_beam_search (CUDA) vs fused_beam_search_plain on the
            card: N=4096, D=128, R=48, L=64, E in {1, 2}, l2 and ip, an
-           odd batch with `exclude`, track_visited in {0, 160}
+           odd batch with `exclude`, track_visited in {0, 160};
+           pq_beam_search vs pq_beam_search_plain: N=4096, R=48, L=64,
+           B=1023 with `exclude`, ksub 16 and 256, l2 and ip, E 1 and
+           2, visited log 0 and 256, m=16 at D=96, m=64 at D=768, and a
+           residual case (coarse_m=2, m=12, l2 norm columns)
   rag      StreamingIndexBuilder over 20,000 fake-embedded 768-d
            passages (backend hnsw, R=32, L=64, ip), then
            IndexSearcher.search on 256 passage texts at complexity 64
@@ -20,17 +26,28 @@ version. Phases, one JSON line each on stdout:
            R=48 L=80 alpha 1.2 wave 8192, graph saved and reloaded,
            FusedBeamEngine at beam 64: recall@10 on 1024 queries and
            device QPS at batch 2048 timed with CUDA events
+  deep     BASELINE config 2 (DEEP, 96-d l2) cut to 1M: a corpus of 16-d
+           latent clusters plus 0.05 ambient noise (1024 clusters, seed
+           0), Vamana R=48 L=80 alpha 1.2 wave 8192, graph saved and
+           reloaded; GraphSearcher must pick PqBeamEngine by itself
+           (m=16, ksub=256, bf16 rescore) and save the `.pq.npz`
+           sidecar, which a second GraphSearcher loads without
+           retraining; recall@10 on 1024 queries at beam 64 and
+           DEEP_BEAM, beside the same graph's recall on exact f32
+           scores; device QPS at batch 2048 and a torch.profiler
+           breakdown of one batch at both beams
   kernels_main
-           fused_beam_search vs its plain version at every shape the
-           rag and sift phases launched it with: rag build (D=768, R=32,
-           ip, L=64, visited log 128), rag search at L=64 and L=1024,
-           sift build (1M, L=80, visited log 160) and sift search (1M,
-           B=2048), each timed beside its bound
+           each kernel vs its plain version at every shape the main
+           paths launched it with: fused_beam_search at rag build (D=768,
+           R=32, ip, L=64, visited log 128), rag search at L=64 and
+           L=1024, sift build (1M, L=80, visited log 160) and sift search
+           (1M, B=2048); pq_beam_search at deep search (1M, B=2048, beam
+           64 and DEEP_BEAM); each timed beside its bound
 
-The counts of kernel launches are set to 0 before the rag phase and read
-after the sift phase. Any failure exits non-zero with no `ok` line. The
-last lines are the kernel table, the card's `nvidia-smi` name and power
-limit, and {"ok": true, "device": {...}}.
+The counts of kernel launches are set to 0 just before each main-path
+phase (rag, sift, deep) and read just after it. Any failure exits
+non-zero with no `ok` line. The last lines are the kernel table, the
+card's `nvidia-smi` name and power limit, and {"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
@@ -58,12 +75,27 @@ RAG_COMPLEXITY = 1024
 RAG_MIN_RECALL_64 = 0.66
 RAG_N = 20_000        # BASELINE config 0: a 20k-chunk 768-d corpus
 SIFT_N = 1_000_000    # bench.py / BASELINE config 1: SIFT-1M scale
+# BASELINE config 2 is DEEP-10M (96-d); cut to 1M for the build's time
+DEEP_N = 1_000_000
+# No beam of 96 / 128 / 192 / 256 cleared recall@10 0.95 on the deep
+# corpus on the first card run (0.6918 / 0.7482 / 0.8450 / 0.8899; 0.5636
+# at 64). The phase searches at the largest and holds both beams to the
+# measured values less 0.02 (PERF.md, ROADMAP Queue C).
+DEEP_BEAM = 256
+DEEP_MIN_RECALL = 0.87
+DEEP_MIN_RECALL_64 = 0.54
 
-KERNEL = dict(
+FUSED = dict(
     name="fused_beam_search",
     route="cuda",
     source="leann_tpu_torch/csrc/fused_beam.cu",
     replaces="leann_tpu/ops/fused_beam.py:269",
+)
+PQ = dict(
+    name="pq_beam_search",
+    route="cuda",
+    source="leann_tpu_torch/csrc/pq_beam.cu",
+    replaces="leann_tpu/ops/pq_beam.py:180",
 )
 
 
@@ -73,6 +105,19 @@ def emit(obj) -> None:
 
 def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
+
+
+def make_lowdim(rng, rows, d, k, clusters, ambient=0.05):
+    """Clusters + unit within-cluster noise confined to a random K-dim
+    subspace of R^d, plus small full-rank ambient noise (the generator of
+    evals/pq_lowdim_sim.py: descriptor corpora such as DEEP sit near
+    low-dimensional manifolds, which is what lets 8-bit PQ navigate)."""
+    basis, _ = np.linalg.qr(rng.standard_normal((d, k)))
+    centers = 4.0 * rng.standard_normal((clusters, k))
+    assign = rng.integers(0, clusters, rows)
+    lat = centers[assign] + rng.standard_normal((rows, k))
+    x = lat @ basis.T + ambient * rng.standard_normal((rows, d))
+    return np.ascontiguousarray(x, dtype=np.float32)
 
 
 def make_corpus(rng, n, d, clusters=1024):
@@ -102,6 +147,33 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps, out
+
+
+def profile(torch, fn, top=6):
+    """Device time of one fn() by torch.profiler: busy ms (the sum of
+    the kernels' own device time), wall ms of the profiled call ending in
+    a synchronize (profiling adds host overhead, so the idle share is an
+    upper bound), and the `top` kernels by device ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ms = {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:   # kernels and copies
+            key = ev.key[:60]
+            ms[key] = ms.get(key, 0.0) + ev.device_time_total / 1e3
+    busy = sum(ms.values())
+    return {"busy_ms": busy, "wall_ms": wall_ms,
+            "idle_share": max(0.0, 1.0 - busy / wall_ms),
+            "kernels_ms": dict(sorted(ms.items(), key=lambda kv: -kv[1])[:top])}
 
 
 def smi() -> str:
@@ -170,6 +242,66 @@ def check_case(torch, label, kw, reps):
     return row
 
 
+def pq_bound(kw):
+    """(bound ms, "bytes" or "operations", expansions) of one
+    pq_beam_search call. Counts what this call's data needs: each
+    expanded record's R id lanes and its m*lps code words read once
+    (4 bytes each), the LUTs, seeds and exclude read once, beam ids +
+    scores and the visited log written once; R*m fp32 adds per expansion.
+    The expansions are counted by rerunning the kernel with a visited log
+    long enough for every hop (it then never wraps)."""
+    from leann_tpu_torch.ops import pq_beam as pb
+
+    e = kw["expansions"]
+    vlog = pb.pq_beam_search(
+        **dict(kw, track_visited=kw["max_iters"] * e))[2]
+    expansions = int((vlog != kw["records"].shape[0] - 1).sum())
+    b, mk = kw["luts"].shape
+    r, m, s = kw["r"], kw["m"], kw["seed_ids"].shape[1]
+    lps = r // (32 // kw["bits"])
+    vt = -(-kw["track_visited"] // 128) * 128
+    bytes_ = (expansions * (r + m * lps) * 4 + b * (mk * 4 + s * 8 + 4)
+              + b * (kw["beam_width"] * 8 + vt * 4))
+    t_bytes = bytes_ / H100_BYTES_PER_S
+    t_ops = expansions * r * m / H100_FP32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", expansions)
+
+
+def check_case_pq(torch, label, kw, reps):
+    """pq_beam_search vs pq_beam_search_plain on the card: ids, scores
+    and visited log equal exactly (the plain version reproduces the
+    kernel's roundings and query groups), with both device ms and the
+    bound. Raises on any difference."""
+    from leann_tpu_torch.ops import pq_beam as pb
+
+    got = pb.pq_beam_search(**kw)
+    plain_ms, ref = cuda_ms(lambda: pb.pq_beam_search_plain(**kw), 1)
+    equal = [bool(torch.equal(a, b)) for a, b in zip(got, ref)]
+    same = got[0] == ref[0]
+    both = same & torch.isfinite(ref[1])
+    err = float((got[1] - ref[1]).abs()[both].max()) if bool(both.any()) else 0.0
+    ms, _ = cuda_ms(lambda: pb.pq_beam_search(**kw), reps)
+    bound_ms, bound_by, expansions = pq_bound(kw)
+    b, mk = kw["luts"].shape
+    sc = got[1]
+    live = torch.isfinite(sc[:, 1:]) & torch.isfinite(sc[:, :-1])
+    tie_share = float(((sc[:, 1:] == sc[:, :-1]) & live).sum()
+                      / max(1, int(live.sum())))
+    row = {"case": label, "b": b, "r": kw["r"], "m": kw["m"],
+           "ksub": kw["ksub"], "l": kw["beam_width"], "e": kw["expansions"],
+           "track_visited": kw["track_visited"], "qb": kw["qb"],
+           "n": kw["records"].shape[0] - 1,
+           "ids_equal": float(same.float().mean()), "all_equal": all(equal),
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "expansions": expansions, "beam_tie_share": tie_share}
+    if not all(equal) or len(got) != len(ref):
+        raise AssertionError(f"pq_beam_search disagrees with its plain "
+                             f"version: {json.dumps(row)}")
+    return row
+
+
 # ------------------------------------------------------------------ phases
 
 
@@ -192,9 +324,11 @@ def phase_build():
     from leann_tpu_torch.ops import _cuda
 
     t0 = time.perf_counter()
-    _cuda.load("fused_beam")
+    _cuda.build(["fused_beam", "pq_beam"])
+    for name in ("fused_beam", "pq_beam"):
+        _cuda.load(name)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "source": KERNEL["source"]})
+          "sources": [FUSED["source"], PQ["source"]]})
 
 
 def phase_kernels(torch, dev):
@@ -225,7 +359,45 @@ def phase_kernels(torch, dev):
                   max_iters=(4 * 64) // e + 32, metric=metric,
                   expansions=e, qb=16, ring_size=1024, track_visited=tv)
         rows.append(check_case(torch, f"{metric}/E{e}/tv{tv}", kw, 10))
-    emit({"phase": "kernels", "kernel": KERNEL["name"], "cases": rows,
+    emit({"phase": "kernels", "kernel": FUSED["name"], "cases": rows,
+          "library_ms": None})
+    return rows
+
+
+def phase_kernels_pq(torch, dev):
+    """pq_beam_search vs its plain version on N=4096 graphs built here,
+    with the engine's own LUTs and ADC seeds at beam 64 and B=1023 (a
+    short last query group), half the queries excluding a node."""
+    from leann_tpu_torch.ops.pq_beam import PqBeamEngine
+    from leann_tpu_torch.ops.vamana import build_vamana
+
+    n, r, b = 4096, 48, 1023
+    rows = []
+    for d, cases in (
+            (96, [("l2", 256, 2, 256, 0), ("ip", 256, 1, 0, 0),
+                  ("l2", 16, 1, 256, 0), ("ip", 16, 2, 256, 0),
+                  ("l2", 16, 2, 0, 0), ("ip", 256, 2, 256, 0),
+                  ("l2", 256, 2, 256, 2)]),
+            (768, [("l2", 256, 2, 256, 0)])):
+        rng = np.random.default_rng(d)
+        x = make_lowdim(rng, n, d, 16, 64)
+        adj, medoid = build_vamana(x, graph_degree=r, complexity=64,
+                                   metric="l2", wave_size=4096, device=dev)
+        q = torch.from_numpy(x[rng.integers(0, n, b)] + 0.05 * rng.standard_normal(
+            (b, d)).astype(np.float32)).to(dev)
+        exclude = torch.from_numpy(
+            np.where(rng.random(b) < 0.5, rng.integers(0, n, b), -1)
+            .astype(np.int32)).to(dev)
+        for metric, ksub, e, vt, coarse in cases:
+            m = 64 if d == 768 else (12 if coarse else 16)
+            eng = PqBeamEngine(x, adj, medoid, metric=metric, m=m, ksub=ksub,
+                               coarse_m=coarse, kmeans_iters=6, device=dev)
+            kw = dict(eng.kernel_args(q, exclude, 64), expansions=e,
+                      track_visited=vt, max_iters=(4 * 64) // e + 32)
+            label = (f"D{d}/m{eng.mt}/ksub{ksub}/{metric}/E{e}/tv{vt}"
+                     + (f"/residual{coarse}" if coarse else ""))
+            rows.append(check_case_pq(torch, label, kw, 10))
+    emit({"phase": "kernels", "kernel": PQ["name"], "cases": rows,
           "library_ms": None})
     return rows
 
@@ -366,12 +538,125 @@ def phase_sift(torch, dev, n, counter):
     return eng, windows[0][0], build_l
 
 
-def phase_kernels_main(torch, rag, sift):
-    """The kernel against its plain version at the shapes the main path
+def phase_deep(torch, dev, n, counter, beams=(64, DEEP_BEAM)):
+    """BASELINE config 2 through the user's entry points: Vamana build,
+    graph file round trip, GraphSearcher's own engine choice (it must be
+    PqBeamEngine at D=96), the `.pq.npz` sidecar reloaded without
+    retraining, recall@10 and device QPS at each beam of `beams`."""
+    from leann_tpu_torch.backend import GraphSearcher
+    from leann_tpu_torch.ops import pq_beam as pb
+    from leann_tpu_torch.ops.beam import BeamSearchEngine
+    from leann_tpu_torch.ops.distance import exact_topk
+    from leann_tpu_torch.ops.vamana import build_vamana
+    from leann_tpu_torch.store.graphfile import GraphFile, graph_path
+
+    d, r, build_l, batch, nq, m = 96, 48, 80, 2048, 1024, 4
+    if os.environ.get("LEANN_GRAPH_ENGINE"):
+        raise AssertionError("deep: LEANN_GRAPH_ENGINE must be unset")
+    t0 = time.perf_counter()
+    pool = make_lowdim(np.random.default_rng(0), n + nq + 3 * m * batch, d,
+                       16, 1024)
+    corpus, queries = pool[:n], pool[n : n + nq]
+    windows = [torch.from_numpy(w).to(dev) for w in
+               pool[n + nq :].reshape(3, m, batch, d)]
+    gen_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    adj, medoid = build_vamana(corpus, graph_degree=r, complexity=build_l,
+                               alpha=1.2, metric="l2", wave_size=8192,
+                               device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        base = os.path.join(tmp, "deep.leann")
+        GraphFile(adj, medoid, "l2").save(graph_path(base))
+        graph = GraphFile.load(graph_path(base))
+        t0 = time.perf_counter()
+        searcher = GraphSearcher(corpus, graph, metric="l2", base=base,
+                                 device=dev)
+        torch.cuda.synchronize()
+        engine_s = time.perf_counter() - t0
+        eng = searcher.engine
+        if type(eng).__name__ != "PqBeamEngine":
+            raise AssertionError(f"deep: GraphSearcher chose "
+                                 f"{type(eng).__name__}, not PqBeamEngine")
+
+        # the sidecar: a second searcher must load it, not train again
+        def no_training(*a, **k):
+            raise AssertionError("deep: PQ retrained despite the sidecar")
+
+        trained = pb.train_pq
+        pb.train_pq = no_training
+        try:
+            t0 = time.perf_counter()
+            again = GraphSearcher(corpus, graph, metric="l2", base=base,
+                                  device=dev)
+            torch.cuda.synchronize()
+            reload_s = time.perf_counter() - t0
+        finally:
+            pb.train_pq = trained
+        if not np.array_equal(again.engine.codes, eng.codes):
+            raise AssertionError("deep: the sidecar's codes differ")
+        del again
+
+    t0 = time.perf_counter()
+    pb.pack_pq_records(np.concatenate([graph.adjacency, np.full(
+        (1, r), n, np.int32)]), np.concatenate(
+            [eng.codes, np.zeros((1, eng.mt), np.uint8)]), eng.bits,
+        device=dev)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+
+    _, oracle = exact_topk(queries, corpus, 10, metric="l2", device=dev)
+    # the graph's own ceiling: the same graph traversed on exact f32
+    # scores (row-gather engine), against which the PQ navigation reads
+    exact_eng = BeamSearchEngine(corpus, graph.adjacency, graph.medoid,
+                                 metric="l2", block_mode="none", device=dev)
+    ceiling = {beam: recall_at(exact_eng.search(queries, k=10,
+                                                beam_width=beam)[0], oracle)
+               for beam in beams}
+    del exact_eng
+    out = {}
+    for beam in beams:
+        c0 = counter()
+        t0 = time.perf_counter()
+        idx, _ = searcher.search(queries, k=10, complexity=beam)
+        search_s = time.perf_counter() - t0
+        if counter() <= c0:
+            raise AssertionError("deep: the PQ kernel was not launched")
+        eng.search_many_device(windows[0], k=10, beam_width=beam)   # warm
+        torch.cuda.synchronize()
+        per_batch = [cuda_ms(lambda w=w: eng.search_many_device(
+            w, k=10, beam_width=beam), 1)[0] / m for w in windows]
+        qps = [batch / (t / 1e3) for t in per_batch]
+        out[beam] = {"recall10": recall_at(idx, oracle),
+                     "exact_graph_recall10": ceiling[beam],
+                     "search_s": search_s, "qps_windows": qps,
+                     "qps_mean": float(np.mean(qps)),
+                     "ms_per_batch": per_batch,
+                     "profile": profile(torch, lambda: eng.search_many_device(
+                         windows[1], k=10, beam_width=beam))}
+
+    emit({"phase": "deep", "n": n, "d": d, "r": r, "build_l": build_l,
+          "gen_s": gen_s, "build_s": build_s, "engine": type(eng).__name__,
+          "pq_m": eng.mt, "pq_ksub": eng.ksub,
+          "engine_s": engine_s, "engine_from_sidecar_s": reload_s,
+          "pack_s": pack_s, "queries": nq, "batch": batch,
+          "beams": {str(k): v for k, v in out.items()}})
+    rec64, rec = out[beams[0]]["recall10"], out[beams[-1]]["recall10"]
+    if rec < DEEP_MIN_RECALL or rec64 < DEEP_MIN_RECALL_64:
+        raise AssertionError(f"deep: recall@10 {rec} at beam {beams[-1]}, "
+                             f"{rec64} at {beams[0]}")
+    return eng, windows[0][0]
+
+
+def phase_kernels_main(torch, rag, sift, deep):
+    """Each kernel against its plain version at the shapes the main paths
     launched it with. The build cases take the builder's final-pass
     arguments (L = complexity, max_iters 2L+16, visited log 2L, medoid
     seed, the point itself excluded) on the finished graph; the search
-    cases take FusedBeamEngine's own arguments."""
+    cases take the engines' own arguments."""
     from leann_tpu_torch.ops.fused_beam import wave_kernel_args
 
     def build_args(eng, q, ids, beam):
@@ -400,9 +685,15 @@ def phase_kernels_main(torch, rag, sift):
         ("sift search", sift_eng.kernel_args(sift_q, none(sift_q), 64), 5),
     ]
     rows = [check_case(torch, label, kw, reps) for label, kw, reps in cases]
-    emit({"phase": "kernels_main", "kernel": KERNEL["name"], "cases": rows,
+    emit({"phase": "kernels_main", "kernel": FUSED["name"], "cases": rows,
           "library_ms": None})
-    return rows
+
+    deep_eng, deep_q = deep
+    pq_rows = [check_case_pq(torch, f"deep search L{beam}", deep_eng.kernel_args(
+        deep_q, none(deep_q), beam), 5) for beam in (64, DEEP_BEAM)]
+    emit({"phase": "kernels_main", "kernel": PQ["name"], "cases": pq_rows,
+          "library_ms": None})
+    return rows, pq_rows
 
 
 def main() -> int:
@@ -413,31 +704,50 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from leann_tpu_torch.ops.fused_beam import fused_beam_search
+    from leann_tpu_torch.ops.pq_beam import pq_beam_search
+
+    wrappers = {FUSED["name"]: fused_beam_search, PQ["name"]: pq_beam_search}
+    launches = dict.fromkeys(wrappers, 0)
+
+    def drive(phase, kernel, n):
+        """One main-path phase, every count set to 0 just before it and
+        read just after; the phase's kernel must have launched."""
+        for w in wrappers.values():
+            w.launches = 0
+        out = phase(torch, dev, n, lambda: wrappers[kernel].launches)
+        got = {k: w.launches for k, w in wrappers.items()}
+        emit({"phase": phase.__name__[len("phase_"):], "launches": got})
+        if got[kernel] <= 0:
+            raise AssertionError(f"{phase.__name__}: {kernel} never launched")
+        for k in got:
+            launches[k] += got[k]
+        return out
 
     dev = torch.device("cuda:0")
     t_all = time.perf_counter()
     phase_env(torch)
     phase_build()
     rows = phase_kernels(torch, dev)
+    pq_grid = phase_kernels_pq(torch, dev)
 
-    # the main path: counts start at 0 here and are read after it
-    fused_beam_search.launches = 0
-    counter = lambda: fused_beam_search.launches  # noqa: E731
-    rag = phase_rag(torch, dev, RAG_N, counter)
-    sift = phase_sift(torch, dev, SIFT_N, counter)
-    launches = fused_beam_search.launches
-    if launches <= 0:
-        raise AssertionError("the main path launched no kernel")
-    main_rows = phase_kernels_main(torch, rag, sift)
+    rag = drive(phase_rag, FUSED["name"], RAG_N)
+    sift = drive(phase_sift, FUSED["name"], SIFT_N)
+    deep = drive(phase_deep, PQ["name"], DEEP_N)
+    main_rows, pq_main = phase_kernels_main(torch, rag, sift, deep)
 
-    # the table row: times at the main path's serving shape (sift search,
-    # 1M, B=2048), the worst error over every comparison
-    serve = main_rows[-1]
-    kernels = [{**KERNEL, "launches": launches,
-                "max_abs_err": max(c["max_abs_err"] for c in rows + main_rows),
-                "ms": serve["ms"], "plain_ms": serve["plain_ms"],
-                "bound_ms": serve["bound_ms"], "bound_by": serve["bound_by"],
-                "library_ms": None}]
+    # the table rows: times at each kernel's serving shape (sift search,
+    # 1M, B=2048; deep search, 1M, B=2048, beam DEEP_BEAM), the worst
+    # error over every comparison
+    kernels = []
+    for info, serve, all_rows in (
+            (FUSED, main_rows[-1], rows + main_rows),
+            (PQ, pq_main[-1], pq_grid + pq_main)):
+        kernels.append({
+            **info, "launches": launches[info["name"]],
+            "max_abs_err": max(c["max_abs_err"] for c in all_rows),
+            "ms": serve["ms"], "plain_ms": serve["plain_ms"],
+            "bound_ms": serve["bound_ms"], "bound_by": serve["bound_by"],
+            "library_ms": None})
     log(f"chip_smoke: {time.perf_counter() - t_all:.1f}s")
     emit({"kernels": kernels})
     print(smi(), flush=True)

@@ -1,8 +1,10 @@
 """ANN backends (port of `leann_tpu/backend/__init__.py`).
 
   flat    exact matmul + top-k (the recall oracle)
-  vamana  fixed-degree graph + beam search (aliases "hnsw" and "diskann")
-  ivf     not in this slice: raises NotImplementedError (ROADMAP Queue A,
+  vamana  fixed-degree graph + beam search (aliases "hnsw" and "diskann"),
+          served by the fused int8 engine, the PQ engine or the plain
+          inline engine
+  ivf     not ported yet: raises NotImplementedError (ROADMAP Queue A,
           the IVF family)
 
 A searcher takes a *batch* of query vectors. Every searcher runs on
@@ -40,18 +42,6 @@ def _not_ported(what: str, item: str):
         f"{what} is not ported to leann_tpu_torch yet (ROADMAP: {item})")
 
 
-def _pq_planes(r: int, m: int) -> int:
-    """Record planes of the reference's 8-bit PQ layout
-    (`leann_tpu/ops/pq_beam.py:pq_layout`): plane 0 holds the R ids, then
-    m subspaces of R/4 lanes each, none crossing a 128-lane plane."""
-    lps, plane, off = r // 4, 0, r
-    for _ in range(m):
-        if off + lps > 128:
-            plane, off = plane + 1, 0
-        off += lps
-    return plane + 1
-
-
 class FlatSearcher:
     """Exact search over the embeddings matrix, served by the
     device-resident two-stage engine (bf16 scan + f32 rescore)."""
@@ -80,10 +70,13 @@ class GraphSearcher:
     Engine selection (override with LEANN_GRAPH_ENGINE=fused|inline|pq):
     on CUDA with kernel shapes (D % 128 == 0, R <= 128) and int8 blocks
     within 9/16 of the free device memory (the reference's 9 GB of a
-    16 GB v5e), the fused CUDA traversal serves. Where the reference
-    would fall through to PQ records, the port raises until the PQ slice
-    lands. Otherwise (and always on CPU under "auto") the plain inline /
-    row-gather engine serves."""
+    16 GB v5e), the fused CUDA traversal serves. When the int8 blocks do
+    not fit or D % 128 != 0 (the DEEP shape: 96-d), the PQ engine serves
+    if its records and the bf16 rescore corpus fit 13/16 of the free
+    memory (the reference's 13 GB): inline 8-bit ADC codes navigate,
+    the beam and visited log are rescored exactly. Otherwise (and always
+    on CPU under "auto") the plain inline / row-gather engine serves;
+    "pq" on CPU runs the PQ engine through the kernel's plain version."""
 
     def __init__(self, vectors: np.ndarray, graph, metric: str = "ip",
                  base: str = "", device: DeviceLike = None):
@@ -93,22 +86,21 @@ class GraphSearcher:
         n, d = vectors.shape
         r = graph.adjacency.shape[1]
         choice = os.environ.get("LEANN_GRAPH_ENGINE", "auto")
-        use_fused = False
+        use_fused = use_pq = False
         if choice == "auto":
             if kernels_available(dev) and r <= 128:
                 free = free_device_bytes(dev)
                 use_fused = d % 128 == 0 and (n + 1) * r * d < free * (9 / 16)
                 m = next((mm for mm in (16, 12, 8) if d % mm == 0), 0)
-                if not use_fused and m and r % 4 == 0 and \
-                        (n + 1) * _pq_planes(r, m) * 512 + n * d * 2 < \
-                        free * (13 / 16):
-                    raise _not_ported(
-                        "the PQ graph engine (chosen when int8 inline blocks "
-                        "do not fit or D % 128 != 0)", "Queue A 10, PQ")
-        elif choice == "pq":
-            raise _not_ported("LEANN_GRAPH_ENGINE=pq", "Queue A 10, PQ")
+                if not use_fused and m and r % 4 == 0:
+                    from leann_tpu_torch.ops.pq_beam import pq_layout
+
+                    cp = pq_layout(r, m, 8)[3]
+                    use_pq = ((n + 1) * cp * 512 + n * d * 2
+                              < free * (13 / 16))
         else:
             use_fused = choice == "fused"
+            use_pq = choice == "pq"
         if use_fused:
             from leann_tpu_torch.ops.fused_beam import FusedBeamEngine
 
@@ -121,6 +113,8 @@ class GraphSearcher:
                 qb=int(os.environ.get("LEANN_FUSED_QB", 16)),
                 device=dev,
             )
+        elif use_pq:
+            self.engine = _pq_engine(vectors, graph, metric, base, dev)
         else:
             from leann_tpu_torch.ops.beam import BeamSearchEngine
 
@@ -141,6 +135,49 @@ class GraphSearcher:
     ) -> Tuple[np.ndarray, np.ndarray]:
         """complexity = beam width."""
         return self.engine.search(queries, k=k, beam_width=max(complexity, k))
+
+
+def _pq_engine(vectors, graph, metric, base, dev):
+    """PqBeamEngine with m = the first of 16, 12, 8 that divides D and
+    ksub = 256, its codebooks and codes loaded from the `.pq.npz` sidecar
+    at `base` when present and saved there when trained.
+    LEANN_PQ_OPQ=1 learns an OPQ rotation first; LEANN_PQ_RESCORE picks
+    the rescore corpus (bf16 by default, int8 when memory is short)."""
+    from leann_tpu_torch.ops.pq import train_opq
+    from leann_tpu_torch.ops.pq_beam import PqBeamEngine
+    from leann_tpu_torch.store import pqfile
+
+    n, d = vectors.shape
+    m = next((mm for mm in (16, 12, 8) if d % mm == 0), 8)
+    want_opq = os.environ.get("LEANN_PQ_OPQ", "0") == "1"
+    books = codes = rot = art = None
+    if base:
+        art = pqfile.load_pq(base, n, metric, want_rot=want_opq)
+        if art is not None:
+            books, codes, rot = art
+    if want_opq and rot is None:
+        rng = np.random.default_rng(0)
+        samp = vectors[rng.choice(n, min(262_144, n), replace=False)]
+        rot, books = train_opq(samp, m=m, ksub=256, device=dev)
+        codes = None
+    engine = PqBeamEngine(
+        vectors=vectors,
+        adjacency=graph.adjacency,
+        medoid=graph.medoid,
+        metric=metric,
+        m=m,
+        ksub=256,
+        rescore=os.environ.get("LEANN_PQ_RESCORE", "bf16"),
+        qb=int(os.environ.get("LEANN_FUSED_QB", 16)),
+        codebooks=books,
+        codes=codes,
+        rotation=rot,
+        device=dev,
+    )
+    if base and art is None:
+        pqfile.save_pq(base, engine.codebooks, engine.codes, n, metric,
+                       rot=engine.rotation)
+    return engine
 
 
 def load_searcher(base: str, meta, sharded: bool = False,

@@ -29,6 +29,7 @@ from leann_tpu_torch.store.passages import (
     read_ids,
     write_ids,
 )
+from leann_tpu_torch.store.pqfile import invalidate_pq
 from leann_tpu_torch.index.bm25 import Bm25Scorer, bm25_path
 from leann_tpu_torch.backend import resolve_backend
 
@@ -214,11 +215,11 @@ class StreamingIndexBuilder:
 
 def _invalidate_sidecars(base: str) -> None:
     """A rebuild at the same base invalidates sidecars derived from the
-    previous corpus: the reference's shard and PQ files (the same names
-    as `leann_tpu/store/{shardfile,pqfile}.py` write)."""
-    for suffix in (".shards.npz", ".pq.npz"):
-        if os.path.exists(base + suffix):
-            os.remove(base + suffix)
+    previous corpus: the PQ codes (`store/pqfile.py`) and the reference's
+    shard file (the name `leann_tpu/store/shardfile.py` writes)."""
+    invalidate_pq(base)
+    if os.path.exists(base + ".shards.npz"):
+        os.remove(base + ".shards.npz")
 
 
 class IndexBuilder:

@@ -311,10 +311,13 @@ def _seed_entries(q_bf, seed_vecs, seed_ids, corpus_nsq, metric, n_entries):
 
 
 def _rescore(queries, corpus, corpus_nsq, cand, n_sentinel, metric, k_out,
-             exclude=None):
+             exclude=None, row_scale=None):
     """Exact f32 rescore of candidate ids [B, C] -> top k_out (ids,
-    scores), sentinel (and `exclude`) entries at -inf."""
+    scores), sentinel (and `exclude`) entries at -inf. `row_scale` [N+1]
+    dequantizes a row-quantized int8 corpus inside the gather."""
     rows = corpus[cand].float()                              # [B, C, D]
+    if row_scale is not None:
+        rows = rows * row_scale[cand][:, :, None]
     dots = torch.einsum("bld,bd->bl", rows, queries.float())
     if metric == "l2":
         scores = 2.0 * dots - corpus_nsq[cand]

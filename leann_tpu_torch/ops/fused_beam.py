@@ -438,6 +438,17 @@ fused_beam_search.launches = 0
 # ------------------------------------------------------------- host engine
 
 
+def _dedup_candidates(beam_ids, vlog_ids, n_sentinel):
+    """beam [B, L] ++ visited log [B, VT] -> sorted candidates with
+    repeats set to the sentinel. Visited entries duplicate beam entries;
+    a sort-dedup is O(C log C), and the order after the rescore comes
+    from the scores anyway."""
+    cand, _ = torch.sort(torch.cat([beam_ids, vlog_ids], dim=1), dim=1)
+    dup = torch.cat([torch.zeros_like(cand[:, :1], dtype=torch.bool),
+                     cand[:, 1:] == cand[:, :-1]], dim=1)
+    return torch.where(dup, n_sentinel, cand)
+
+
 def state_from_reference(
     vectors: np.ndarray,     # [N, D] f32 corpus
     adjacency: np.ndarray,   # [N, R] int32, pad = N
@@ -586,13 +597,8 @@ class FusedBeamEngine:
             **self.kernel_args(queries, exclude, beam_width, max_iters))
         beam_ids = outs[0].to(torch.int64)
         if self.visited_pool:
-            cand = torch.cat([beam_ids, outs[2].to(torch.int64)], dim=1)
-            # visited entries duplicate beam entries: sort-dedup (the
-            # order after the rescore comes from the scores anyway)
-            cand, _ = torch.sort(cand, dim=1)
-            dup = torch.cat([torch.zeros_like(cand[:, :1], dtype=torch.bool),
-                             cand[:, 1:] == cand[:, :-1]], dim=1)
-            cand = torch.where(dup, self.n, cand)
+            cand = _dedup_candidates(beam_ids, outs[2].to(torch.int64),
+                                     self.n)
         else:
             cand = beam_ids
         # excluded ids can enter through the seed pool: the rescore

@@ -7,6 +7,7 @@
   <base>.meta.json           IndexMeta JSON
   <base>.graph.npz           packed fixed-degree adjacency
   <base>.bm25.npz            persisted BM25 postings
+  <base>.pq.npz              PQ codebooks and codes (store/pqfile.py)
 """
 
 from leann_tpu_torch.store.passages import Passage, PassageStore, PassageStoreWriter

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from leann_tpu_torch.ops import fused_beam as tf
+from leann_tpu_torch.ops import pq_beam as tp
 from leann_tpu_torch.ops.vamana import build_vamana
 
 pytestmark = pytest.mark.cuda
@@ -122,3 +123,79 @@ def test_wrapper_rejects_mixed_devices(dev, graph):
             q, st["blocks"], st["meta"], torch.zeros((2, 1), dtype=torch.int32),
             torch.zeros((2, 1)), torch.full((2,), -1, dtype=torch.int32),
             r=adj.shape[1], beam_width=16, max_iters=4, metric="l2")
+
+
+@pytest.fixture(scope="module")
+def graph96(dev):
+    """The DEEP shape: 96-d l2, R=48 (the PQ engine's territory)."""
+    rng = np.random.default_rng(4)
+    basis, _ = np.linalg.qr(rng.standard_normal((96, 16)))
+    lat = (4.0 * rng.standard_normal((32, 16)))[rng.integers(0, 32, 3000)]
+    x = ((lat + rng.standard_normal((3000, 16))) @ basis.T
+         + 0.05 * rng.standard_normal((3000, 96))).astype(np.float32)
+    adj, medoid = build_vamana(x, graph_degree=48, complexity=64,
+                               metric="l2", wave_size=1024, device=dev)
+    return x, adj, medoid
+
+
+@pytest.mark.parametrize("metric,ksub,e,track", [
+    ("l2", 16, 2, 256), ("ip", 16, 1, 0), ("l2", 256, 2, 256),
+    ("ip", 256, 1, 128)])
+def test_pq_kernel_equals_plain(dev, graph96, metric, ksub, e, track):
+    """Narrow (4-bit, bf16 terms) and wide (8-bit, bf16 sum) paths on
+    an odd batch of 77 (a short last group of qb=16) with `exclude`."""
+    x, adj, medoid = graph96
+    eng = tp.PqBeamEngine(x, adj, medoid, metric=metric, m=16, ksub=ksub,
+                          kmeans_iters=4, device=dev)
+    rng = np.random.default_rng(1)
+    b = 77
+    q = torch.from_numpy(x[rng.integers(0, len(x), b)] + np.float32(0.05)).to(dev)
+    exc = torch.from_numpy(
+        rng.integers(-1, len(x), b).astype(np.int32)).to(dev)
+    kw = dict(eng.kernel_args(q, exc, 48), expansions=e, track_visited=track,
+              max_iters=80)
+    before = tp.pq_beam_search.launches
+    got = tp.pq_beam_search(**kw)
+    torch.cuda.synchronize()
+    assert tp.pq_beam_search.launches == before + 1
+    ref = tp.pq_beam_search_plain(**kw)
+    assert len(got) == len(ref) == (3 if track else 2)
+    for a, r in zip(got, ref):
+        assert torch.equal(a, r)
+
+
+@pytest.mark.parametrize("coarse", [0, 2])
+def test_pq_kernel_equals_plain_m64_d768(dev, coarse):
+    """m=64 at D=768 (a 64 KB LUT in shared memory, 7-plane records), and
+    a residual case (mc=2 + mf=64 + 2 norm columns)."""
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2000, 768)).astype(np.float32)
+    adj, medoid = build_vamana(x, graph_degree=48, complexity=48,
+                               metric="l2", wave_size=1024, device=dev)
+    eng = tp.PqBeamEngine(x, adj, medoid, metric="l2", m=64, ksub=256,
+                          coarse_m=coarse, kmeans_iters=3, device=dev)
+    assert eng.records.shape[1] == (8 if coarse else 7)
+    q = torch.from_numpy(x[:40] + np.float32(0.05)).to(dev)
+    none = torch.full((40,), -1, dtype=torch.int32, device=dev)
+    kw = eng.kernel_args(q, none, 64)
+    got = tp.pq_beam_search(**kw)
+    ref = tp.pq_beam_search_plain(**kw)
+    for a, r in zip(got, ref):
+        assert torch.equal(a, r)
+
+
+def test_pq_engine_on_cuda_matches_cpu(dev, graph96):
+    """PqBeamEngine on the card (kernel) vs on the CPU (plain), with the
+    same codebooks and codes."""
+    x, adj, medoid = graph96
+    gpu = tp.PqBeamEngine(x, adj, medoid, metric="l2", m=16, ksub=256,
+                          rescore="bf16", kmeans_iters=4, device=dev)
+    cpu = tp.PqBeamEngine(x, adj, medoid, metric="l2", m=16, ksub=256,
+                          rescore="bf16", codebooks=gpu.codebooks,
+                          codes=gpu.codes, device="cpu")
+    q = x[np.random.default_rng(2).integers(0, len(x), 40)] + np.float32(0.05)
+    gi, gs = gpu.search(q, k=10, beam_width=64)
+    ci, cs = cpu.search(q, k=10, beam_width=64)
+    overlap = np.mean([len(set(a.tolist()) & set(b.tolist())) / 10
+                       for a, b in zip(gi, ci)])
+    assert overlap >= 0.98

@@ -121,6 +121,8 @@ def test_port_imports_no_jax_and_no_reference(tmp_path):
         from leann_tpu_torch.embed.fake import FakeEmbedding
         from leann_tpu_torch.index import IndexBuilder, IndexSearcher
         from leann_tpu_torch.ops.fused_beam import FusedBeamEngine
+        from leann_tpu_torch.ops.pq_beam import PqBeamEngine
+        from leann_tpu_torch.store import pqfile
         base = {str(tmp_path / "i" / "documents.leann")!r}
         texts = [f"doc {{i}}" for i in range(200)]
         vecs = FakeEmbedding(128).embed(texts)
@@ -132,6 +134,10 @@ def test_port_imports_no_jax_and_no_reference(tmp_path):
         assert res[0][0].id == "d0", res[0][0].id
         FusedBeamEngine(vecs, np.zeros((200, 8), np.int32), 0,
                         device="cpu").search(vecs[:1], k=3)
+        pq = PqBeamEngine(vecs, np.zeros((200, 8), np.int32), 0, m=8,
+                          ksub=16, kmeans_iters=2, device="cpu")
+        pq.search(vecs[:1], k=3)
+        pqfile.save_pq(base, pq.codebooks, pq.codes, 200, "ip")
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m.startswith("jaxlib") or m == "leann_tpu"
