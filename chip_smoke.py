@@ -4,7 +4,8 @@
 
 Drives `leann_tpu_torch`'s main paths through the entry points a user
 calls (Vamana build -> fused graph search at D % 128 == 0; Vamana build
--> PQ graph search at 96-d), builds the CUDA kernels from
+-> PQ graph search at 96-d; IVF build -> bf16 bucket search; the
+residual-int8 IVF serving tier at 10M x 96), builds the CUDA kernels from
 `leann_tpu_torch/csrc/` (one nvcc per source, all started together), and
 holds each against its plain PyTorch version. Phases, one JSON line each
 on stdout:
@@ -17,7 +18,12 @@ on stdout:
            pq_beam_search vs pq_beam_search_plain: N=4096, R=48, L=64,
            B=1023 with `exclude`, ksub 16 and 256, l2 and ip, E 1 and
            2, visited log 0 and 256, m=16 at D=96, m=64 at D=768, and a
-           residual case (coarse_m=2, m=12, l2 norm columns)
+           residual case (coarse_m=2, m=12, l2 norm columns);
+           ivf_bucket_dots and ivf8_bucket_scores vs their plain versions
+           on small grids: D of 96, 128, 768 (16-byte loads) and 24 / 20
+           (single elements), caps not multiples of 32, odd batches,
+           empty (-1) slots, a probe list that repeats one bucket; l2
+           and ip for ivf8
   rag      StreamingIndexBuilder over 20,000 fake-embedded 768-d
            passages (backend hnsw, R=32, L=64, ip), then
            IndexSearcher.search on 256 passage texts at complexity 64
@@ -36,16 +42,35 @@ on stdout:
            DEEP_BEAM, beside the same graph's recall on exact f32
            scores; device QPS at batch 2048 and a torch.profiler
            breakdown of one batch at both beams
+  ivf      BASELINE config 1 / bench.py's IVF config: the sift mixture
+           at 1M x 128 l2, IvfEngine(n_clusters=2000), nprobe 8:
+           recall@10 on 1024 queries of `search` (torch scan) and
+           `search_pallas` (kernel ivf_bucket_dots), device QPS of both
+           at batch 2048 by CUDA events, a profile of one window each
+  ivf8     BASELINE config 2 at its full scale: the same mixture at
+           10M x 96 l2, IvfInt8Engine(n_clusters=6324), nprobe 8, with
+           LEANN_IVF8_PALLAS=1 (kernel ivf8_bucket_scores) and without
+           (torch scan): recall@10 on 1024 queries, device QPS at batches
+           512 and 2048, calibrate_nprobe(0.95), a profile of each path
+  rag_ivf  the rag phase's 20,000 passages built with backend "ivf" (ip)
+           through StreamingIndexBuilder: the meta's calibrated nprobe,
+           then IndexSearcher.search on 256 passage texts: self-hit@1 and
+           recall@10 against exact at that nprobe; no kernel may launch
+           (IvfSearcher serves the torch scan, as the reference's serves
+           XLA's)
   kernels_main
            each kernel vs its plain version at every shape the main
            paths launched it with: fused_beam_search at rag build (D=768,
            R=32, ip, L=64, visited log 128), rag search at L=64 and
            L=1024, sift build (1M, L=80, visited log 160) and sift search
            (1M, B=2048); pq_beam_search at deep search (1M, B=2048, beam
-           64 and DEEP_BEAM); each timed beside its bound
+           64 and DEEP_BEAM); ivf_bucket_dots at the ivf phase's search
+           (B=2048, nprobe 8) and ivf8_bucket_scores at the ivf8 phase's
+           (B=512 and 2048); each timed beside its bound, the bucket
+           kernels also beside torch.bmm over buckets gathered beforehand
 
 The counts of kernel launches are set to 0 just before each main-path
-phase (rag, sift, deep) and read just after it. Any failure exits
+phase (rag, sift, deep, ivf, ivf8, rag_ivf) and read just after it. Any failure exits
 non-zero with no `ok` line. The last lines are the kernel table, the
 card's `nvidia-smi` name and power limit, and {"ok": true, "device": ...}.
 """
@@ -84,6 +109,14 @@ DEEP_N = 1_000_000
 DEEP_BEAM = 256
 DEEP_MIN_RECALL = 0.87
 DEEP_MIN_RECALL_64 = 0.54
+IVF_N = 1_000_000     # BASELINE config 1 / bench.py's IVF config
+IVF_CLUSTERS = 2000
+IVF8_N = 10_000_000   # BASELINE config 2 at full scale: DEEP-10M, 96-d
+IVF8_CLUSTERS = 6324  # 2 * sqrt(N), the engine's default
+NPROBE = 8
+IVF_MIN_RECALL = 0.95
+IVF8_MIN_RECALL = 0.924  # the first card run (0.9444) less 0.02
+RAG_IVF_MIN_RECALL = 0.9
 
 FUSED = dict(
     name="fused_beam_search",
@@ -96,6 +129,18 @@ PQ = dict(
     route="cuda",
     source="leann_tpu_torch/csrc/pq_beam.cu",
     replaces="leann_tpu/ops/pq_beam.py:180",
+)
+DOTS = dict(
+    name="ivf_bucket_dots",
+    route="cuda",
+    source="leann_tpu_torch/csrc/ivf_bucket_dots.cu",
+    replaces="leann_tpu/ops/pallas_kernels.py:92",
+)
+IVF8 = dict(
+    name="ivf8_bucket_scores",
+    route="cuda",
+    source="leann_tpu_torch/csrc/ivf8_scan.cu",
+    replaces="leann_tpu/ops/pallas_kernels.py:167",
 )
 
 
@@ -120,11 +165,44 @@ def make_lowdim(rng, rows, d, k, clusters, ambient=0.05):
     return np.ascontiguousarray(x, dtype=np.float32)
 
 
-def make_corpus(rng, n, d, clusters=1024):
+def make_corpus(rng, n, d, clusters=1024, chunk=1 << 20):
+    """bench.py's mixture: `clusters` centers at 4x unit normal plus unit
+    noise. The noise is drawn in row chunks: the same stream as one draw,
+    without a float64 temporary of the whole corpus (7.7 GB at 10M x 96)."""
     centers = rng.standard_normal((clusters, d)).astype(np.float32) * 4.0
     assign = rng.integers(0, clusters, n)
-    return (centers[assign]
-            + rng.standard_normal((n, d)).astype(np.float32)).astype(np.float32)
+    out = np.empty((n, d), np.float32)
+    for s in range(0, n, chunk):
+        e = min(n, s + chunk)
+        out[s:e] = centers[assign[s:e]] + rng.standard_normal(
+            (e - s, d)).astype(np.float32)
+    return out
+
+
+def noisy_rows(corpus, shape, seed):
+    """[*shape, D] device-ready queries: corpus rows plus unit noise."""
+    g = np.random.default_rng(seed)
+    m = int(np.prod(shape))
+    x = corpus[g.integers(0, len(corpus), m)] + g.standard_normal(
+        (m, corpus.shape[1])).astype(np.float32)
+    return x.reshape(*shape, corpus.shape[1])
+
+
+class env_var:
+    """Set one environment variable inside a with-block (None unsets)."""
+
+    def __init__(self, name, value):
+        self.name, self.value = name, value
+
+    def __enter__(self):
+        self.old = os.environ.pop(self.name, None)
+        if self.value is not None:
+            os.environ[self.name] = self.value
+
+    def __exit__(self, *exc):
+        os.environ.pop(self.name, None)
+        if self.old is not None:
+            os.environ[self.name] = self.old
 
 
 def recall_at(idx, oracle, k=10):
@@ -302,6 +380,90 @@ def check_case_pq(torch, label, kw, reps):
     return row
 
 
+def max_row_norm(kind, tables, chunk=256):
+    """Largest row norm of a bucket table, in bucket chunks: the bf16 row
+    (dots) or |centroid| + scale * |r8| (ivf8), the magnitude each
+    score's float32 sum is taken over."""
+    out = 0.0
+    if kind == "dots":
+        (vecs,) = tables
+        for s in range(0, vecs.shape[0], chunk):
+            out = max(out, float(vecs[s : s + chunk].float().norm(dim=2).max()))
+        return out
+    pay, scale, cent = tables
+    for s in range(0, pay.shape[0], chunk):
+        r = (cent[s : s + chunk].norm(dim=1)[:, None]
+             + scale[s : s + chunk] * pay[s : s + chunk].float().norm(dim=2))
+        out = max(out, float(r.max()))
+    return out
+
+
+def bucket_bound(kind, probe, cap, d):
+    """(bound ms, "bytes" or "operations") of one bucket-kernel call on
+    this call's probes: each probed bucket read once (dots: cap*D bf16;
+    ivf8: cap*D int8 + scale, nsq and ids, 12*cap, + the centroid, 4*D),
+    queries and probes read once, the [B, P, cap] f32 output written
+    once; 2*cap*D fp32 operations per (query, probe)."""
+    import torch
+
+    b, p = probe.shape
+    uniq = int(torch.unique(probe).numel())
+    per = cap * d * 2 if kind == "dots" else cap * d + 12 * cap + 4 * d
+    bytes_ = uniq * per + b * d * 4 + b * p * 4 + b * p * cap * 4
+    t_bytes = bytes_ / H100_BYTES_PER_S
+    t_ops = 2 * b * p * cap * d / H100_FP32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_case_bucket(torch, label, kind, args, metric, reps, library=False):
+    """A bucket kernel vs its plain version on the card: -inf positions
+    equal exactly, no NaN, finite scores within 1e-5 x |q| x (largest row
+    norm), l2 twice that (the plain version adds the same exact products
+    in another order). With `library`, also torch.bmm in bf16 over the
+    probed buckets gathered beforehand (the gather not timed), a
+    yardstick the port never calls. Raises on disagreement."""
+    from leann_tpu_torch.ops import bucket_kernels as bk
+
+    q, probe, table = args[:3]
+    cap, d = table.shape[1:]
+    if kind == "dots":
+        fn = lambda: bk.ivf_bucket_dots(*args)
+        plain = lambda: bk.ivf_bucket_dots_plain(*args)
+        row = max_row_norm(kind, (table,))
+    else:
+        fn = lambda: bk.ivf8_bucket_scores(*args, metric)
+        plain = lambda: bk.ivf8_bucket_scores_plain(*args, metric)
+        row = max_row_norm(kind, (table, args[3], args[6]))
+    got = fn()
+    plain_ms, ref = cuda_ms(plain, 1)
+    neg_equal = bool(torch.equal(torch.isneginf(got), torch.isneginf(ref)))
+    nan = bool(torch.isnan(got).any())
+    live = torch.isfinite(ref)
+    err = float((got - ref).abs()[live].max()) if bool(live.any()) else 0.0
+    tol = 1e-5 * float(q.norm(dim=1).max()) * row * (
+        2 if metric == "l2" else 1)
+    ms, _ = cuda_ms(fn, reps)
+    bound_ms, bound_by = bucket_bound(kind, probe, cap, d)
+    lib_ms = None
+    if library:
+        b, p = probe.shape
+        gathered = table[probe.long()].to(torch.bfloat16).reshape(
+            b, p * cap, d)
+        qb = q.to(torch.bfloat16)[:, :, None]
+        lib_ms, _ = cuda_ms(lambda: torch.bmm(gathered, qb), reps)
+        del gathered
+    out = {"case": label, "b": q.shape[0], "p": probe.shape[1], "cap": cap,
+           "d": d, "metric": metric, "buckets": table.shape[0],
+           "neg_inf_equal": neg_equal, "exact": bool(torch.equal(got, ref)),
+           "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+    if not neg_equal or nan or err > tol:
+        raise AssertionError(f"{kind} kernel disagrees with its plain "
+                             f"version: {json.dumps(out)}")
+    return out
+
+
 # ------------------------------------------------------------------ phases
 
 
@@ -323,12 +485,13 @@ def phase_env(torch):
 def phase_build():
     from leann_tpu_torch.ops import _cuda
 
+    libs = ("fused_beam", "pq_beam", "ivf_bucket_dots", "ivf8_scan")
     t0 = time.perf_counter()
-    _cuda.build(["fused_beam", "pq_beam"])
-    for name in ("fused_beam", "pq_beam"):
+    _cuda.build(libs)
+    for name in libs:
         _cuda.load(name)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "sources": [FUSED["source"], PQ["source"]]})
+          "sources": [k["source"] for k in (FUSED, PQ, DOTS, IVF8)]})
 
 
 def phase_kernels(torch, dev):
@@ -402,6 +565,51 @@ def phase_kernels_pq(torch, dev):
     return rows
 
 
+def phase_kernels_ivf(torch, dev):
+    """ivf_bucket_dots and ivf8_bucket_scores vs their plain versions on
+    random tables: caps that are not multiples of 32, D with 16-byte loads
+    (96, 128, 768) and without (24, 20), odd batches whose first query
+    probes one bucket P times, ~20% empty (-1) slots plus three at each
+    bucket's end."""
+    g = torch.Generator().manual_seed(5)
+    dots, ivf8 = [], []
+    for k, cap, d, b, p in ((12, 50, 96, 13, 8), (9, 77, 128, 31, 5),
+                            (5, 40, 768, 7, 4), (6, 33, 24, 9, 3),
+                            (4, 20, 20, 5, 2)):
+        pay = torch.randint(-127, 128, (k, cap, d), generator=g,
+                            dtype=torch.int8)
+        scale = torch.rand((k, cap), generator=g) * 0.05
+        cent = torch.randn((k, d), generator=g) * 3
+        nsq = torch.rand((k, cap), generator=g) * 100
+        ids = torch.arange(k * cap, dtype=torch.int32).reshape(k, cap)
+        ids[torch.rand((k, cap), generator=g) < 0.2] = -1
+        ids[:, cap - 3:] = -1
+        vecs = (torch.randn((k, cap, d), generator=g) * 2).to(torch.bfloat16)
+        q = torch.randn((b, d), generator=g) * 2
+        probe = torch.randint(0, k, (b, p), generator=g, dtype=torch.int32)
+        probe[0] = probe[0, 0]
+        q, probe, pay, scale, cent, nsq, ids, vecs = (
+            t.to(dev) for t in (q, probe, pay, scale, cent, nsq, ids, vecs))
+        label = f"K{k}/cap{cap}/D{d}/B{b}/P{p}"
+        dots.append(check_case_bucket(torch, label, "dots",
+                                      (q, probe, vecs), "ip", 10))
+        for metric in ("l2", "ip"):
+            ivf8.append(check_case_bucket(
+                torch, f"{label}/{metric}", "ivf8",
+                (q, probe, pay, scale, nsq, ids, cent), metric, 10))
+    for info, rows in ((DOTS, dots), (IVF8, ivf8)):
+        emit({"phase": "kernels", "kernel": info["name"], "cases": rows,
+              "library_ms": None})
+    return dots, ivf8
+
+
+def rag_texts(n_docs):
+    rng = np.random.default_rng(11)
+    words = [f"w{i}" for i in range(5000)]
+    return rng, [f"passage {i}: " + " ".join(rng.choice(words, 24))
+                 for i in range(n_docs)]
+
+
 def phase_rag(torch, dev, n_docs, counter):
     from leann_tpu_torch.embed.fake import FakeEmbedding
     from leann_tpu_torch.index import (
@@ -410,10 +618,7 @@ def phase_rag(torch, dev, n_docs, counter):
     from leann_tpu_torch.ops.distance import ExactEngine
     from leann_tpu_torch.store.passages import Passage
 
-    rng = np.random.default_rng(11)
-    words = [f"w{i}" for i in range(5000)]
-    texts = [f"passage {i}: " + " ".join(rng.choice(words, 24))
-             for i in range(n_docs)]
+    rng, texts = rag_texts(n_docs)
     emb = FakeEmbedding(768)
     t0 = time.perf_counter()
     vecs = emb.embed(texts)
@@ -651,12 +856,210 @@ def phase_deep(torch, dev, n, counter, beams=(64, DEEP_BEAM)):
     return eng, windows[0][0]
 
 
-def phase_kernels_main(torch, rag, sift, deep):
+def qps_windows(torch, fn, windows):
+    """(per-batch device ms of fn(batch) over each [M, B, D] window, by
+    CUDA events, after one warm window; the QPS of each)."""
+    m, b = windows[0].shape[:2]
+    for q in windows[0]:
+        fn(q)
+    torch.cuda.synchronize()
+    per_batch = [cuda_ms(lambda w=w: [fn(q) for q in w], 1)[0] / m
+                 for w in windows]
+    return per_batch, [b / (t / 1e3) for t in per_batch]
+
+
+def phase_ivf(torch, dev, n, counter):
+    """BASELINE config 1 / bench.py's IVF config through IvfEngine: the
+    torch scan (`search`, what IvfSearcher serves) and the kernel path
+    (`search_pallas`, kernel ivf_bucket_dots) at nprobe 8."""
+    from leann_tpu_torch.ops.distance import exact_topk
+    from leann_tpu_torch.ops.ivf import IvfEngine
+
+    d, batch, nq, m = 128, 2048, 1024, 4
+    t0 = time.perf_counter()
+    pool = make_corpus(np.random.default_rng(0), n + nq, d, 1024)
+    corpus, queries = pool[:n], pool[n:]
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng = IvfEngine(corpus, n_clusters=IVF_CLUSTERS, metric="l2", device=dev)
+    torch.cuda.synchronize()
+    engine_s = time.perf_counter() - t0
+    _, oracle = exact_topk(queries, corpus, 10, metric="l2", device=dev)
+
+    c0 = counter()
+    rec_torch = recall_at(eng.search(queries, k=10, nprobe=NPROBE)[0], oracle)
+    torch_launches = counter() - c0
+    rec_kernel = recall_at(eng.search_pallas(queries, k=10, nprobe=NPROBE)[0],
+                           oracle)
+    kernel_launches = counter() - c0 - torch_launches
+
+    windows = [torch.from_numpy(noisy_rows(corpus, (m, batch), 2000 + w)).to(dev)
+               for w in range(3)]
+    out = {}
+    for name, fn in (
+            ("torch", lambda q: eng.search_device(q, k=10, nprobe=NPROBE)),
+            ("kernel", lambda q: eng.search_pallas_device(
+                q, k=10, nprobe=NPROBE))):
+        per_batch, qps = qps_windows(torch, fn, windows)
+        out[name] = {"ms_per_batch": per_batch, "qps_windows": qps,
+                     "qps_mean": float(np.mean(qps)),
+                     "profile": profile(torch, lambda: [fn(q) for q in windows[1]])}
+    emit({"phase": "ivf", "n": n, "d": d, "n_clusters": IVF_CLUSTERS,
+          "buckets": eng.bucket_cent.shape[0], "cap": eng.cap,
+          "nprobe": NPROBE, "gen_s": gen_s, "engine_s": engine_s,
+          "queries": nq, "batch": batch, "recall10_torch": rec_torch,
+          "recall10_kernel": rec_kernel, "launches_torch": torch_launches,
+          "launches_kernel": kernel_launches, **out})
+    if min(rec_torch, rec_kernel) < IVF_MIN_RECALL or \
+            abs(rec_torch - rec_kernel) > 0.002:
+        raise AssertionError(f"ivf: recall@10 {rec_torch} (torch) vs "
+                             f"{rec_kernel} (kernel)")
+    if torch_launches or kernel_launches <= 0:
+        raise AssertionError("ivf: the kernel path must launch "
+                             "ivf_bucket_dots and the torch scan must not")
+    return eng, windows[0][0]
+
+
+def phase_ivf8(torch, dev, n, counter):
+    """BASELINE config 2 at full scale through IvfInt8Engine: the kernel
+    path (LEANN_IVF8_PALLAS=1, kernel ivf8_bucket_scores) and the torch
+    scan at nprobe 8, device QPS at the reference's A/B batch (512) and
+    at 2048, and the calibrated nprobe for recall 0.95."""
+    from leann_tpu_torch.ops.distance import exact_topk
+    from leann_tpu_torch.ops.ivf import kmeans
+    from leann_tpu_torch.ops.ivf_int8 import IvfInt8Engine
+
+    d, nq, m = 96, 1024, 4
+    t0 = time.perf_counter()
+    pool = make_corpus(np.random.default_rng(0), n + nq, d, 1024)
+    corpus, queries = pool[:n], pool[n:]
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    centers, assign = kmeans(corpus, IVF8_CLUSTERS, metric="l2", device=dev)
+    kmeans_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng = IvfInt8Engine(corpus, metric="l2", centers=centers, assign=assign,
+                        device=dev)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    _, oracle = exact_topk(queries, corpus, 10, metric="l2", device=dev)
+
+    paths = {"kernel": "1", "torch": None}
+    rec, launches = {}, {}
+    for name, flag in paths.items():
+        c0 = counter()
+        with env_var("LEANN_IVF8_PALLAS", flag):
+            rec[name] = recall_at(eng.search(queries, k=10, nprobe=NPROBE)[0],
+                                  oracle)
+        launches[name] = counter() - c0
+    timing = {}
+    batches = {}
+    for batch in (512, 2048):
+        windows = [torch.from_numpy(noisy_rows(
+            corpus, (m, batch), 3000 + 10 * batch + w)).to(dev)
+            for w in range(3)]
+        batches[batch] = windows[0][0]
+        for name, flag in paths.items():
+            with env_var("LEANN_IVF8_PALLAS", flag):
+                fn = lambda q: eng.search_device(q, k=10, nprobe=NPROBE)
+                per_batch, qps = qps_windows(torch, fn, windows)
+                row = {"ms_per_batch": per_batch, "qps_windows": qps,
+                       "qps_mean": float(np.mean(qps))}
+                if batch == 2048:
+                    row["profile"] = profile(
+                        torch, lambda: [fn(q) for q in windows[1]])
+            timing[f"{name}_b{batch}"] = row
+    t0 = time.perf_counter()
+    with env_var("LEANN_IVF8_PALLAS", None):
+        cal_nprobe, cal_rec = eng.calibrate_nprobe(0.95)
+    calibrate_s = time.perf_counter() - t0
+    emit({"phase": "ivf8", "n": n, "d": d, "n_clusters": IVF8_CLUSTERS,
+          "buckets": eng.bucket_cent.shape[0], "cap": eng.cap,
+          "payload_gb": eng.payload.numel() / 1e9, "nprobe": NPROBE,
+          "gen_s": gen_s, "kmeans_s": kmeans_s, "pack_s": pack_s,
+          "queries": nq, "recall10_kernel": rec["kernel"],
+          "recall10_torch": rec["torch"], "launches_kernel": launches["kernel"],
+          "launches_torch": launches["torch"],
+          "calibrated_nprobe": cal_nprobe, "calibrated_recall10": cal_rec,
+          "calibrate_s": calibrate_s, **timing})
+    if rec["kernel"] < IVF8_MIN_RECALL or \
+            abs(rec["kernel"] - rec["torch"]) > 0.002:
+        raise AssertionError(f"ivf8: recall@10 {rec['kernel']} (kernel) vs "
+                             f"{rec['torch']} (torch)")
+    if launches["torch"] or launches["kernel"] <= 0:
+        raise AssertionError("ivf8: LEANN_IVF8_PALLAS=1 must launch "
+                             "ivf8_bucket_scores and the torch scan must not")
+    return eng, batches
+
+
+def phase_rag_ivf(torch, dev, n_docs, counter):
+    """The rag corpus through the `ivf` backend's entry points: build
+    (k-means + the calibrated nprobe in the meta), IndexSearcher.search
+    on 256 passage texts. IvfSearcher serves the torch scan, so no kernel
+    may launch."""
+    from leann_tpu_torch.embed.fake import FakeEmbedding
+    from leann_tpu_torch.index import (
+        IndexSearcher, SearchOptions, StreamingIndexBuilder,
+    )
+    from leann_tpu_torch.ops.distance import ExactEngine
+    from leann_tpu_torch.store.passages import Passage
+
+    rng, texts = rag_texts(n_docs)
+    emb = FakeEmbedding(768)
+    vecs = emb.embed(texts)
+    with tempfile.TemporaryDirectory() as tmp:
+        base = os.path.join(tmp, "indexes", "rag_ivf", "documents.leann")
+        builder = StreamingIndexBuilder(base, dim=768, backend="ivf",
+                                        metric="ip", device=dev)
+        for i, (t, v) in enumerate(zip(texts, vecs)):
+            builder.add_passage(Passage(id=f"p{i}", text=t,
+                                        metadata={"n": i}), v)
+        t0 = time.perf_counter()
+        meta = builder.build()
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        kw = meta.backend_kwargs or {}
+        if "nprobe" not in kw:
+            raise AssertionError(f"rag_ivf: no calibrated nprobe in {kw}")
+        nprobe = int(kw["nprobe"])
+        searcher = IndexSearcher.load(base, device=dev)
+        pick = rng.choice(n_docs, 256, replace=False)
+        q = emb.embed([texts[i] for i in pick])
+        oracle = ExactEngine(vecs, metric="ip", device=dev).search(
+            q, k=10, exact_scan=True)[0]
+        out = {}
+        for complexity in (2 * nprobe, 64):
+            t0 = time.perf_counter()
+            res = searcher.search(q, SearchOptions(top_k=10,
+                                                   complexity=complexity))
+            secs = time.perf_counter() - t0
+            got = [[int(h.id[1:]) for h in r] for r in res]
+            hit1 = float(np.mean([bool(r) and r[0].id == f"p{i}"
+                                  for r, i in zip(res, pick)]))
+            out[complexity] = {"search_s": secs, "self_hit1": hit1,
+                               "recall10": recall_at(
+                                   [g + [-1] * (10 - len(g)) for g in got],
+                                   oracle)}
+    cal = out[2 * nprobe]
+    emit({"phase": "rag_ivf", "n": n_docs, "dim": 768, "build_s": build_s,
+          "backend_kwargs": kw, "queries": 256,
+          "engine": type(searcher.backend.engine).__name__,
+          "at_calibrated_nprobe": cal, "at_complexity_64": out[64]})
+    if cal["self_hit1"] < 0.99 or cal["recall10"] < RAG_IVF_MIN_RECALL:
+        raise AssertionError(f"rag_ivf: {cal} at nprobe {nprobe}")
+    if counter():
+        raise AssertionError("rag_ivf: a kernel launched; IvfSearcher must "
+                             "serve the torch scan")
+
+
+def phase_kernels_main(torch, rag, sift, deep, ivf, ivf8):
     """Each kernel against its plain version at the shapes the main paths
     launched it with. The build cases take the builder's final-pass
     arguments (L = complexity, max_iters 2L+16, visited log 2L, medoid
     seed, the point itself excluded) on the finished graph; the search
-    cases take the engines' own arguments."""
+    cases take the engines' own arguments; the bucket kernels take the
+    engines' tables and the probes of their centroid top-8."""
+    from leann_tpu_torch.ops.distance import pairwise_scores, topk_stable
     from leann_tpu_torch.ops.fused_beam import wave_kernel_args
 
     def build_args(eng, q, ids, beam):
@@ -693,7 +1096,27 @@ def phase_kernels_main(torch, rag, sift, deep):
         deep_q, none(deep_q), beam), 5) for beam in (64, DEEP_BEAM)]
     emit({"phase": "kernels_main", "kernel": PQ["name"], "cases": pq_rows,
           "library_ms": None})
-    return rows, pq_rows
+
+    def probes(eng, q):
+        sc = pairwise_scores(q, eng.bucket_cent, eng.metric)
+        return topk_stable(sc, NPROBE)[1].to(torch.int32)
+
+    ivf_eng, ivf_q = ivf
+    dots_rows = [check_case_bucket(
+        torch, "ivf search", "dots",
+        (ivf_q, probes(ivf_eng, ivf_q), ivf_eng.bucket_vecs_bf16), "l2", 10,
+        library=True)]
+    emit({"phase": "kernels_main", "kernel": DOTS["name"], "cases": dots_rows,
+          "library_ms": dots_rows[-1]["library_ms"]})
+    ivf8_eng, ivf8_q = ivf8
+    pay, sc, ns, ids, cent, _, _ = ivf8_eng._pallas_tables()
+    ivf8_rows = [check_case_bucket(
+        torch, f"ivf8 search B{b}", "ivf8",
+        (q, probes(ivf8_eng, q), pay, sc, ns, ids, cent), "l2", 10,
+        library=True) for b, q in sorted(ivf8_q.items())]
+    emit({"phase": "kernels_main", "kernel": IVF8["name"], "cases": ivf8_rows,
+          "library_ms": ivf8_rows[-1]["library_ms"]})
+    return rows, pq_rows, dots_rows, ivf8_rows
 
 
 def main() -> int:
@@ -703,21 +1126,30 @@ def main() -> int:
         log("chip_smoke: torch.cuda.is_available() is False; no GPU here")
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from leann_tpu_torch.ops.bucket_kernels import (
+        ivf8_bucket_scores, ivf_bucket_dots,
+    )
     from leann_tpu_torch.ops.fused_beam import fused_beam_search
     from leann_tpu_torch.ops.pq_beam import pq_beam_search
 
-    wrappers = {FUSED["name"]: fused_beam_search, PQ["name"]: pq_beam_search}
+    wrappers = {FUSED["name"]: fused_beam_search, PQ["name"]: pq_beam_search,
+                DOTS["name"]: ivf_bucket_dots, IVF8["name"]: ivf8_bucket_scores}
     launches = dict.fromkeys(wrappers, 0)
 
     def drive(phase, kernel, n):
         """One main-path phase, every count set to 0 just before it and
-        read just after; the phase's kernel must have launched."""
+        read just after; the phase's kernel must have launched (with
+        kernel None, no kernel may launch)."""
         for w in wrappers.values():
             w.launches = 0
-        out = phase(torch, dev, n, lambda: wrappers[kernel].launches)
+        count = ((lambda: sum(w.launches for w in wrappers.values()))
+                 if kernel is None else (lambda: wrappers[kernel].launches))
+        out = phase(torch, dev, n, count)
         got = {k: w.launches for k, w in wrappers.items()}
         emit({"phase": phase.__name__[len("phase_"):], "launches": got})
-        if got[kernel] <= 0:
+        if kernel is None and any(got.values()):
+            raise AssertionError(f"{phase.__name__}: a kernel launched")
+        if kernel is not None and got[kernel] <= 0:
             raise AssertionError(f"{phase.__name__}: {kernel} never launched")
         for k in got:
             launches[k] += got[k]
@@ -729,25 +1161,33 @@ def main() -> int:
     phase_build()
     rows = phase_kernels(torch, dev)
     pq_grid = phase_kernels_pq(torch, dev)
+    dots_grid, ivf8_grid = phase_kernels_ivf(torch, dev)
 
     rag = drive(phase_rag, FUSED["name"], RAG_N)
     sift = drive(phase_sift, FUSED["name"], SIFT_N)
     deep = drive(phase_deep, PQ["name"], DEEP_N)
-    main_rows, pq_main = phase_kernels_main(torch, rag, sift, deep)
+    ivf = drive(phase_ivf, DOTS["name"], IVF_N)
+    ivf8 = drive(phase_ivf8, IVF8["name"], IVF8_N)
+    drive(phase_rag_ivf, None, RAG_N)
+    main_rows, pq_main, dots_main, ivf8_main = phase_kernels_main(
+        torch, rag, sift, deep, ivf, ivf8)
 
     # the table rows: times at each kernel's serving shape (sift search,
-    # 1M, B=2048; deep search, 1M, B=2048, beam DEEP_BEAM), the worst
-    # error over every comparison
+    # 1M, B=2048; deep search, 1M, B=2048, beam DEEP_BEAM; ivf search,
+    # 1M, B=2048; ivf8 search, 10M, B=2048), the worst error over every
+    # comparison
     kernels = []
     for info, serve, all_rows in (
             (FUSED, main_rows[-1], rows + main_rows),
-            (PQ, pq_main[-1], pq_grid + pq_main)):
+            (PQ, pq_main[-1], pq_grid + pq_main),
+            (DOTS, dots_main[-1], dots_grid + dots_main),
+            (IVF8, ivf8_main[-1], ivf8_grid + ivf8_main)):
         kernels.append({
             **info, "launches": launches[info["name"]],
             "max_abs_err": max(c["max_abs_err"] for c in all_rows),
             "ms": serve["ms"], "plain_ms": serve["plain_ms"],
             "bound_ms": serve["bound_ms"], "bound_by": serve["bound_by"],
-            "library_ms": None})
+            "library_ms": serve.get("library_ms")})
     log(f"chip_smoke: {time.perf_counter() - t_all:.1f}s")
     emit({"kernels": kernels})
     print(smi(), flush=True)

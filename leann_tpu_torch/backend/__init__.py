@@ -4,8 +4,9 @@
   vamana  fixed-degree graph + beam search (aliases "hnsw" and "diskann"),
           served by the fused int8 engine, the PQ engine or the plain
           inline engine
-  ivf     not ported yet: raises NotImplementedError (ROADMAP Queue A,
-          the IVF family)
+  ivf     k-means buckets + bf16 scan + f32 rescore (`ops/ivf.py`); the
+          IVF-PQ engine it picks for corpora too large for that is not
+          ported yet and raises NotImplementedError (ROADMAP Queue A 10)
 
 A searcher takes a *batch* of query vectors. Every searcher runs on
 `device` (default cuda; see `leann_tpu_torch.device`).
@@ -14,7 +15,7 @@ A searcher takes a *batch* of query vectors. Every searcher runs on
 from __future__ import annotations
 
 import os
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -137,6 +138,48 @@ class GraphSearcher:
         return self.engine.search(queries, k=k, beam_width=max(complexity, k))
 
 
+class IvfSearcher:
+    """Partitioned matmul search (`ops/ivf.py`).
+
+    Engine selection (override with LEANN_IVF_ENGINE=pq): the reference
+    moves to ADC-compressed buckets (IVF-PQ) when the bf16 tables and the
+    f32 rescore corpus (6 bytes per element) pass 11 GB of a 16 GB v5e;
+    here that is 11/16 of the free device memory, and only on CUDA."""
+
+    def __init__(self, vectors: np.ndarray, ivf, metric: str = "ip",
+                 default_nprobe: Optional[int] = None,
+                 device: DeviceLike = None):
+        self.metric = metric
+        # build-time calibrated floor (meta.backend_kwargs["nprobe"]): a
+        # calibrated corpus keeps its measured >= 0.95 operating point
+        # even when callers pass the default complexity
+        self.default_nprobe = default_nprobe
+        dev = resolve_device(device)
+        n, d = vectors.shape
+        choice = os.environ.get("LEANN_IVF_ENGINE", "auto")
+        m = next((mm for mm in (16, 12, 8) if d % mm == 0), 0)
+        use_pq = choice == "pq" or (
+            choice == "auto" and m and kernels_available(dev)
+            and n * d * 6 > free_device_bytes(dev) * (11 / 16))
+        if use_pq:
+            raise _not_ported("the IVF-PQ engine (ops/ivf_pq.py)",
+                              "Queue A 10, IVF-PQ")
+        from leann_tpu_torch.ops.ivf import IvfEngine
+
+        self.engine = IvfEngine(vectors, metric=metric, centers=ivf.centers,
+                                assign=ivf.assign, device=dev)
+
+    def __len__(self) -> int:
+        return self.engine.n
+
+    def search(
+        self, queries: np.ndarray, k: int, complexity: int = 64
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """complexity maps to nprobe (clusters probed per query)."""
+        nprobe = max(complexity // 2, self.default_nprobe or 8)
+        return self.engine.search(queries, k=k, nprobe=nprobe)
+
+
 def _pq_engine(vectors, graph, metric, base, dev):
     """PqBeamEngine with m = the first of 16, 12, 8 that divides D and
     ksub = 256, its codebooks and codes loaded from the `.pq.npz` sidecar
@@ -190,12 +233,16 @@ def load_searcher(base: str, meta, sharded: bool = False,
 def _load_local_searcher(base: str, meta, device: DeviceLike = None):
     from leann_tpu_torch.store.embeddings import EmbeddingsStore
     from leann_tpu_torch.store.graphfile import GraphFile, graph_path
+    from leann_tpu_torch.store.ivffile import IvfFile, ivf_path
 
     backend = resolve_backend(meta.backend_name)
     metric = getattr(meta, "metric", "ip")
-    if backend == "ivf":
-        raise _not_ported("the ivf backend", "Queue A 9, IVF family")
     vectors = np.asarray(EmbeddingsStore(base, meta.dimensions).all())
+    if backend == "ivf":
+        ivf = IvfFile.load(ivf_path(base))
+        kw = getattr(meta, "backend_kwargs", None) or {}
+        return IvfSearcher(vectors, ivf, metric=metric,
+                           default_nprobe=kw.get("nprobe"), device=device)
     if backend == "flat" or not GraphFile.exists(base):
         # a graph meta with no graph file degrades to exact search, as in
         # the reference

@@ -22,6 +22,18 @@
 //   vlog    when VT > 0: vlog[it*E + t] = u_t (sentinel when inactive)
 //   stop    no unexpanded live entry, or max_iters
 //
+// Query groups. The TPU program runs qb queries together and merges all
+// of them while any is active: a query whose beam is fully expanded
+// takes empty merges (its candidates all (-inf, sentinel), its ring
+// shifting in -1s), which permute entries of equal score through the
+// bitonic network (duplicate vectors give equal int8 scores). Here one
+// CTA owns one query and stops when it converges, recording its active
+// hop count; a second kernel then applies the empty merges a query of
+// its group would have taken (max hops of the group minus its own), only
+// where its beam holds a tie, since without ties an empty merge changes
+// nothing. The visited log is unaffected: inactive hops log the
+// sentinel, its initial value.
+//
 // Design. The TPU grouped qb queries per program to feed its matrix unit;
 // here one CTA of 256 threads owns one query and keeps the whole state in
 // shared memory (~31 KB at L=64, E=2, R=48, D=128: state 6 KB, rings
@@ -65,11 +77,41 @@ struct Params {
   int32_t* out_ids;        // [B, L]
   float* out_sc;           // [B, L]
   int32_t* vlog;           // [B, VT] or null
-  int D, R, S, L, E, P2, V, Vs, VT, max_iters, metric_l2, n_sentinel;
+  int32_t* hops;           // [B] active hops per query
+  int B, D, R, S, L, E, P2, V, Vs, VT, max_iters, metric_l2, n_sentinel, qb;
 };
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// Descending bitonic sort of P2 (score, id[, exp]) entries in shared
+// memory; lower position keeps its entry on ties in descending blocks.
+__device__ void bitonic_desc(float* sc, int32_t* id, int32_t* ex, int P2) {
+  const int tid = threadIdx.x;
+  for (int k = 2; k <= P2; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = tid; i < (P2 >> 1); i += kThreads) {
+        const int lo = ((i & ~(j - 1)) << 1) | (i & (j - 1));
+        const int up = lo | j;
+        const float a = sc[lo], bb = sc[up];
+        const bool swap = (lo & k) == 0 ? (bb > a) : (a >= bb);
+        if (swap) {
+          sc[lo] = bb;
+          sc[up] = a;
+          const int32_t ti = id[lo];
+          id[lo] = id[up];
+          id[up] = ti;
+          if (ex) {
+            const int32_t te = ex[lo];
+            ex[lo] = ex[up];
+            ex[up] = te;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -124,6 +166,7 @@ fused_beam_kernel(const Params p) {
     for (int i = tid; i < p.VT; i += kThreads)
       p.vlog[(size_t)b * p.VT + i] = sentinel;
   int head = 0;  // ring[t][(head + j) % V] holds logical position j
+  int hops = p.max_iters;
   __syncthreads();
 
   for (int it = 0; it < p.max_iters; ++it) {
@@ -155,7 +198,10 @@ fused_beam_kernel(const Params p) {
       }
     }
     __syncthreads();
-    if (sel[2] == 0) break;
+    if (sel[2] == 0) {
+      hops = it;
+      break;
+    }
 
     // ---- 2. stage the expanded nodes' records (16-byte loads) ----
     {
@@ -241,27 +287,7 @@ fused_beam_kernel(const Params p) {
     __syncthreads();
 
     // ---- 6. bitonic sort, descending; lower position wins ties ----
-    for (int k = 2; k <= P2; k <<= 1) {
-      for (int j = k >> 1; j > 0; j >>= 1) {
-        for (int i = tid; i < (P2 >> 1); i += kThreads) {
-          const int lo = ((i & ~(j - 1)) << 1) | (i & (j - 1));
-          const int up = lo | j;
-          const float a = st_sc[lo], bb = st_sc[up];
-          const bool swap = (lo & k) == 0 ? (bb > a) : (a >= bb);
-          if (swap) {
-            st_sc[lo] = bb;
-            st_sc[up] = a;
-            const int32_t ti = st_id[lo];
-            st_id[lo] = st_id[up];
-            st_id[up] = ti;
-            const int32_t te = st_exp[lo];
-            st_exp[lo] = st_exp[up];
-            st_exp[up] = te;
-          }
-        }
-        __syncthreads();
-      }
-    }
+    bitonic_desc(st_sc, st_id, st_exp, P2);
 
     // ---- 7. entries past L die ----
     for (int i = L + tid; i < P2; i += kThreads) {
@@ -275,6 +301,53 @@ fused_beam_kernel(const Params p) {
   for (int i = tid; i < L; i += kThreads) {
     p.out_ids[(size_t)b * L + i] = st_id[i];
     p.out_sc[(size_t)b * L + i] = st_sc[i];
+  }
+  if (tid == 0) p.hops[b] = hops;
+}
+
+// The empty merges of a converged query whose group was still active:
+// (max active hops of the group) - (its own), each a bitonic sort of
+// [beam(L) | (-inf, sentinel) ...] over P2, entries past L dying. Every
+// live entry of a converged beam is expanded, so the flags need no
+// replay.
+__global__ void __launch_bounds__(kThreads)
+fused_settle_kernel(const Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int L = p.L, P2 = p.P2;
+  const float NEG_INF = __int_as_float(0xff800000);
+  const int g0 = (b / p.qb) * p.qb;
+  const int g1 = min(p.B, g0 + p.qb);
+  int group_hops = 0;
+  for (int q = g0; q < g1; ++q) group_hops = max(group_hops, p.hops[q]);
+  const int idle = group_hops - p.hops[b];
+  if (idle <= 0) return;
+
+  float* sc = reinterpret_cast<float*>(smem);                  // [P2]
+  int32_t* id = reinterpret_cast<int32_t*>(smem + (size_t)P2 * 4);
+  for (int i = tid; i < P2; i += kThreads) {
+    sc[i] = i < L ? p.out_sc[(size_t)b * L + i] : NEG_INF;
+    id[i] = i < L ? p.out_ids[(size_t)b * L + i] : p.n_sentinel;
+  }
+  __syncthreads();
+  // without a tie among live entries an empty merge is the identity
+  bool tie = false;
+  for (int i = tid; i + 1 < L; i += kThreads)
+    tie |= sc[i] > NEG_INF && sc[i] == sc[i + 1];
+  if (!__syncthreads_or(tie)) return;
+
+  for (int k = 0; k < idle; ++k) {
+    bitonic_desc(sc, id, nullptr, P2);
+    for (int i = L + tid; i < P2; i += kThreads) {
+      sc[i] = NEG_INF;
+      id[i] = p.n_sentinel;
+    }
+    __syncthreads();
+  }
+  for (int i = tid; i < L; i += kThreads) {
+    p.out_ids[(size_t)b * L + i] = id[i];
+    p.out_sc[(size_t)b * L + i] = sc[i];
   }
 }
 
@@ -291,14 +364,16 @@ extern "C" size_t leann_fused_beam_smem_bytes(int D, int R, int E, int P2,
          16;
 }
 
-// Launches one CTA per query on `stream`. Returns cudaGetLastError()
-// after the launch (0 = launched).
+// Launches the traversal (one CTA per query) and then the group settle
+// pass on `stream`. Returns the first cudaError_t met (0 = both
+// launched). `vlog` may be null when VT == 0.
 extern "C" int leann_fused_beam_search(
     const float* q, const int8_t* blocks, const int32_t* meta,
     const int32_t* seed_ids, const float* seed_sc, const int32_t* exclude,
-    int32_t* out_ids, float* out_sc, int32_t* vlog, int B, int D, int R,
-    int S, int L, int E, int P2, int V, int VT, int max_iters,
-    int metric_l2, int n_sentinel, void* stream) {
+    int32_t* out_ids, float* out_sc, int32_t* vlog, int32_t* hops, int B,
+    int D, int R, int S, int L, int E, int P2, int V, int VT, int max_iters,
+    int metric_l2, int n_sentinel, int qb, void* stream) {
+  if (qb < 1) return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q;
   p.blocks = blocks;
@@ -309,6 +384,8 @@ extern "C" int leann_fused_beam_search(
   p.out_ids = out_ids;
   p.out_sc = out_sc;
   p.vlog = vlog;
+  p.hops = hops;
+  p.B = B;
   p.D = D;
   p.R = R;
   p.S = S;
@@ -321,12 +398,17 @@ extern "C" int leann_fused_beam_search(
   p.max_iters = max_iters;
   p.metric_l2 = metric_l2;
   p.n_sentinel = n_sentinel;
+  p.qb = qb;
   const size_t smem = leann_fused_beam_smem_bytes(D, R, E, P2, p.Vs);
   cudaError_t err = cudaFuncSetAttribute(
       fused_beam_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  if (B > 0)
-    fused_beam_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(p);
+  if (B <= 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  fused_beam_kernel<<<B, kThreads, smem, s>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  fused_settle_kernel<<<B, kThreads, (size_t)P2 * 8, s>>>(p);
   return (int)cudaGetLastError();
 }

@@ -3,11 +3,14 @@
 StreamingIndexBuilder streams passages/ids/embeddings to disk as chunks
 are embedded and builds the ANN structure at the end, on `device`
 (default cuda). It writes the same files as the reference: passages,
-offsets, ids, raw-f32 embeddings, meta, the graph and the BM25 sidecar.
-Builds resume from a `.ckpt.json` of consistent stream lengths.
+offsets, ids, raw-f32 embeddings, meta, the graph or the IVF centers,
+and the BM25 sidecar. Builds resume from a `.ckpt.json` of consistent
+stream lengths.
 
-This slice builds `flat` and `vamana` (`hnsw`, `diskann`). The `ivf`
-backend and recompute-ready token sidecars raise until their slices land.
+The port builds `flat`, `vamana` (`hnsw`, `diskann`) and `ivf` (k-means
+on the device, then, with LEANN_IVF_CALIBRATE unset or not "0" and at
+least 1000 rows, the calibrated nprobe in `backend_kwargs`).
+Recompute-ready token sidecars raise until their slice lands.
 """
 
 from __future__ import annotations
@@ -68,10 +71,6 @@ class StreamingIndexBuilder:
         self.build_bm25 = build_bm25
         self.tokenizer_encoder = tokenizer_encoder
         self.files_done = 0
-        if self.backend == "ivf":
-            raise NotImplementedError(
-                "the ivf backend is not ported to leann_tpu_torch yet "
-                "(ROADMAP: Queue A 9, IVF family)")
         if is_recompute and tokenizer_encoder is not None:
             raise NotImplementedError(
                 "recompute token sidecars are not ported to leann_tpu_torch "
@@ -159,6 +158,8 @@ class StreamingIndexBuilder:
         write_ids(self.base, self._ids)
 
         backend_kwargs = None
+        if self.backend == "ivf":
+            backend_kwargs = self._build_ivf()
         if self.backend == "vamana":
             from leann_tpu_torch.ops.vamana import build_vamana
             from leann_tpu_torch.store.embeddings import EmbeddingsStore
@@ -211,6 +212,33 @@ class StreamingIndexBuilder:
         if os.path.exists(ckpt_path(self.base)):
             os.remove(ckpt_path(self.base))
         return meta
+
+    def _build_ivf(self) -> Dict:
+        """k-means centers and assignment into `.ivf.npz`, then the nprobe
+        operating point calibrated on this corpus (fixed-nprobe recall
+        depends on the data), which IvfSearcher honours as a floor."""
+        from leann_tpu_torch.ops.ivf import IvfEngine, kmeans
+        from leann_tpu_torch.store.embeddings import EmbeddingsStore
+        from leann_tpu_torch.store.ivffile import IvfFile, ivf_path
+        from leann_tpu_torch.utils import span
+
+        vectors = np.asarray(EmbeddingsStore(self.base, self.dim).all())
+        metric = "ip" if self.metric == "cosine" else self.metric
+        n_clusters = max(16, min(int(np.sqrt(len(vectors)) * 2), len(vectors)))
+        with span("build.ivf", n=len(vectors)):
+            centers, assign = kmeans(vectors, n_clusters, metric=metric,
+                                     device=self.device)
+        IvfFile(centers, assign, self.metric).save(ivf_path(self.base))
+        backend_kwargs = {"n_clusters": n_clusters}
+        if os.environ.get("LEANN_IVF_CALIBRATE", "1") != "0" \
+                and len(vectors) >= 1000:
+            eng = IvfEngine(vectors, metric=self.metric, centers=centers,
+                            assign=assign, device=self.device)
+            with span("build.ivf.calibrate"):
+                nprobe, rec = eng.calibrate_nprobe()
+            backend_kwargs["nprobe"] = int(nprobe)
+            backend_kwargs["calibrated_recall10"] = round(rec, 4)
+        return backend_kwargs
 
 
 def _invalidate_sidecars(base: str) -> None:

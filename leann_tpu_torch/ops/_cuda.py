@@ -34,12 +34,18 @@ _PTR, _I32 = ctypes.c_void_p, ctypes.c_int
 # also exports leann_cuda_error_string
 SIGNATURES = {
     "fused_beam": {
-        "leann_fused_beam_search": ([_PTR] * 9 + [_I32] * 12 + [_PTR], _I32),
+        "leann_fused_beam_search": ([_PTR] * 10 + [_I32] * 13 + [_PTR], _I32),
         "leann_fused_beam_smem_bytes": ([_I32] * 5, ctypes.c_size_t),
     },
     "pq_beam": {
         "leann_pq_beam_search": ([_PTR] * 10 + [_I32] * 15 + [_PTR], _I32),
         "leann_pq_beam_smem_bytes": ([_I32] * 6, ctypes.c_size_t),
+    },
+    "ivf_bucket_dots": {
+        "leann_ivf_bucket_dots": ([_PTR] * 4 + [_I32] * 7 + [_PTR], _I32),
+    },
+    "ivf8_scan": {
+        "leann_ivf8_bucket_scores": ([_PTR] * 8 + [_I32] * 8 + [_PTR], _I32),
     },
 }
 

@@ -239,6 +239,15 @@ def _member(x, pool):
     return torch.gather(srt, -1, pos) == x
 
 
+def _group_any(x, qb):
+    """[B] bool -> [B] bool: is x true anywhere in b's group of qb
+    consecutive queries (the Pallas kernel's program)?"""
+    b = x.shape[0]
+    pad = -b % qb
+    xp = torch.cat([x, x.new_zeros(pad)]).reshape(-1, qb).any(1)
+    return xp.repeat_interleave(qb)[:b]
+
+
 def _sizes(l, e, ring_size, track_visited):
     c = e * LANES
     p2 = 1 << int(np.ceil(np.log2(l + c)))
@@ -252,10 +261,14 @@ def fused_beam_search_plain(
     beam_width, max_iters, metric, expansions=2, qb=16, ring_size=1024,
     track_visited=0,
 ):
-    """Plain PyTorch version of the fused kernel, batched over queries;
-    a query stops taking updates once it has no unexpanded live entry.
-    Same arguments and outputs as `fused_beam_search`."""
-    del qb, r
+    """Plain PyTorch version of the fused kernel, batched over queries,
+    hop by hop as the Pallas kernel runs them. Queries run in groups of
+    qb (the Pallas program): a query with no unexpanded live entry keeps
+    taking merges while any query of its group is active. Its candidates
+    are all (-inf, sentinel) and its ring shifts in -1s, but the bitonic
+    network permutes entries of equal score. Same arguments and outputs
+    as `fused_beam_search`."""
+    del r
     b, _ = queries.shape
     dev = queries.device
     n_sentinel = blocks_i8.shape[0] - 1
@@ -281,7 +294,7 @@ def fused_beam_search_plain(
 
     for it in range(max_iters):
         pos, active = _first_k_unexpanded(st_sc, st_exp, e)     # [B, E]
-        alive = active.any(1)
+        alive = _group_any(active.any(1), qb)
         if not bool(alive.any()):
             break
         hit = torch.zeros_like(st_exp)
@@ -342,7 +355,7 @@ def fused_beam_search_plain(
 
 
 def _check_inputs(queries, blocks_i8, meta_i32, seed_ids, seed_scores,
-                  exclude, r, beam_width, expansions):
+                  exclude, r, beam_width, expansions, qb):
     b, d = queries.shape
     if blocks_i8.dim() != 3 or meta_i32.shape[1:] != (3, LANES) or \
             blocks_i8.shape[1:] != (r, d):
@@ -352,6 +365,8 @@ def _check_inputs(queries, blocks_i8, meta_i32, seed_ids, seed_scores,
                          f"(got D={d}, R={r})")
     if expansions not in (1, 2):
         raise ValueError("fused kernel supports expansions <= 2")
+    if qb < 1:
+        raise ValueError("qb >= 1")
     if seed_ids.dim() != 2 or seed_ids.shape[0] != b or \
             seed_scores.shape != seed_ids.shape or exclude.shape != (b,):
         raise ValueError("seed_ids/seed_scores [B, S] and exclude [B] expected")
@@ -390,11 +405,13 @@ def fused_beam_search(
     (VT = track_visited rounded up to a multiple of 128): the first
     VT/E hops' expanded node ids, sentinel-padded.
 
-    CUDA tensors launch the CUDA kernel (one CTA per query; `qb` is kept
-    for the reference's signature and does not constrain B). CPU tensors
+    Queries form groups of qb consecutive rows, as the reference's
+    programs do (B need not be a multiple of qb: the last group is
+    short). CUDA tensors launch the CUDA kernel (one CTA per query, then
+    the settle pass that replays the group's empty merges); CPU tensors
     run `fused_beam_search_plain`."""
     _check_inputs(queries, blocks_i8, meta_i32, seed_ids, seed_scores,
-                  exclude, r, beam_width, expansions)
+                  exclude, r, beam_width, expansions, qb)
     if queries.device.type == "cpu":
         return fused_beam_search_plain(
             queries, blocks_i8, meta_i32, seed_ids, seed_scores, exclude,
@@ -420,13 +437,14 @@ def fused_beam_search(
     out_ids = torch.empty((b, l), dtype=torch.int32, device=dev)
     out_sc = torch.empty((b, l), dtype=torch.float32, device=dev)
     vlog = torch.empty((b, max(vt, 1)), dtype=torch.int32, device=dev)
+    hops = torch.empty((b,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.leann_fused_beam_search(
             *(t.data_ptr() for t in ts), out_ids.data_ptr(),
             out_sc.data_ptr(), vlog.data_ptr() if vt else None,
-            b, d, r, s, l, e, p2, v, vt, max_iters, int(metric == "l2"),
-            blocks_i8.shape[0] - 1, stream)
+            hops.data_ptr(), b, d, r, s, l, e, p2, v, vt, max_iters,
+            int(metric == "l2"), blocks_i8.shape[0] - 1, qb, stream)
     _cuda.check(lib, err, "fused_beam_search")
     fused_beam_search.launches += 1
     return (out_ids, out_sc, vlog) if vt else (out_ids, out_sc)

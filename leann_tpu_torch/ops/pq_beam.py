@@ -36,7 +36,7 @@ from leann_tpu_torch.device import DeviceLike, resolve_device
 from leann_tpu_torch.ops.beam import _rescore, seed_pool_size
 from leann_tpu_torch.ops.fused_beam import (
     LANES, NEG_INF, _bitonic_desc, _dedup_candidates, _first_k_unexpanded,
-    _member, _sizes,
+    _group_any, _member, _sizes,
 )
 from leann_tpu_torch.ops.pq import (
     adc_affine, encode_pq, encode_residual_pq, quantize_norms,
@@ -175,15 +175,6 @@ def _adc_scores(rec, lut, r, m, ksub, bits, slots):
         val = torch.gather(lut, 1, idx.to(torch.int64)).reshape(b, e, r)
         acc = acc + torch.where(code < ksub, val, 0.0)
     return acc.to(torch.bfloat16).float() if wide else acc
-
-
-def _group_any(x, qb):
-    """[B] bool -> [B] bool: is x true anywhere in b's group of qb
-    consecutive queries (the Pallas kernel's program)?"""
-    b = x.shape[0]
-    pad = -b % qb
-    xp = torch.cat([x, x.new_zeros(pad)]).reshape(-1, qb).any(1)
-    return xp.repeat_interleave(qb)[:b]
 
 
 def pq_beam_search_plain(

@@ -8,6 +8,7 @@
   <base>.graph.npz           packed fixed-degree adjacency
   <base>.bm25.npz            persisted BM25 postings
   <base>.pq.npz              PQ codebooks and codes (store/pqfile.py)
+  <base>.ivf.npz             IVF k-means centers and assignment (store/ivffile.py)
 """
 
 from leann_tpu_torch.store.passages import Passage, PassageStore, PassageStoreWriter

@@ -4,13 +4,17 @@ a card and no JAX it runs on its own:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-Tolerance: exact. The plain version sums in the kernel's order, so the
-kernel's ids, scores and visited log equal the plain version's."""
+Tolerances: the traversal kernels (B1, B3) exactly: the plain versions
+sum in the kernels' order, so ids, scores and visited logs are equal.
+The bucket kernels (B2, B4): -inf positions equal exactly, finite scores
+within 1e-5 x |q| x (largest row norm) (l2: twice that), since their
+plain versions add the same exact products in another order."""
 
 import numpy as np
 import pytest
 import torch
 
+from leann_tpu_torch.ops import bucket_kernels as tbk
 from leann_tpu_torch.ops import fused_beam as tf
 from leann_tpu_torch.ops import pq_beam as tp
 from leann_tpu_torch.ops.vamana import build_vamana
@@ -199,3 +203,116 @@ def test_pq_engine_on_cuda_matches_cpu(dev, graph96):
     overlap = np.mean([len(set(a.tolist()) & set(b.tolist())) / 10
                        for a, b in zip(gi, ci)])
     assert overlap >= 0.98
+
+
+def test_kernel_query_groups_on_duplicate_rows(dev):
+    """B1 with qb=4 on a corpus whose rows appear two or three times:
+    converged beams hold tied int8 scores, and the settle pass must
+    reorder them as the group's empty merges do in the plain version."""
+    rng = np.random.default_rng(6)
+    base = rng.standard_normal((800, 128)).astype(np.float32)
+    x = np.concatenate([base, base, base[:400]])[rng.permutation(2000)]
+    adj, medoid = build_vamana(x, graph_degree=24, complexity=48,
+                               metric="l2", wave_size=1024, device=dev)
+    st = tf.state_from_reference(x, adj, medoid, device=dev)
+    b = 61
+    q = torch.from_numpy(np.clip(np.round(
+        x[rng.integers(0, len(x), b)] * 4), -6, 6)).to(dev)
+    seeds = torch.full((b, 1), medoid, dtype=torch.int32, device=dev)
+    sc = (2.0 * q @ st["corpus"][medoid] - st["sq_norms"][medoid])[:, None]
+    exc = torch.full((b,), -1, dtype=torch.int32, device=dev)
+    for qb in (4, 16):
+        kw = dict(r=adj.shape[1], beam_width=32, max_iters=100, metric="l2",
+                  expansions=2, qb=qb, ring_size=256, track_visited=160)
+        got = tf.fused_beam_search(q, st["blocks"], st["meta"], seeds,
+                                   sc.contiguous(), exc, **kw)
+        ref = tf.fused_beam_search_plain(q, st["blocks"], st["meta"], seeds,
+                                         sc.contiguous(), exc, **kw)
+        ties = (ref[1][:, 1:] == ref[1][:, :-1]) & torch.isfinite(ref[1][:, 1:])
+        assert bool(ties.any())
+        for a, r in zip(got, ref):
+            assert torch.equal(a, r)
+
+
+def _bucket_case(dev, k, cap, d, b, p, seed):
+    """Random bucket tables: int8 residuals, scales, |x|^2, ids with
+    empty (-1) slots, centroids, bf16 rows; an odd batch whose first
+    query probes one bucket p times."""
+    g = torch.Generator().manual_seed(seed)
+    pay = torch.randint(-127, 128, (k, cap, d), generator=g, dtype=torch.int8)
+    scale = torch.rand((k, cap), generator=g) * 0.05
+    cent = torch.randn((k, d), generator=g) * 3
+    nsq = torch.rand((k, cap), generator=g) * 100
+    ids = torch.arange(k * cap, dtype=torch.int32).reshape(k, cap)
+    ids[torch.rand((k, cap), generator=g) < 0.2] = -1
+    ids[:, cap - 3:] = -1
+    vecs = (torch.randn((k, cap, d), generator=g) * 2).to(torch.bfloat16)
+    q = torch.randn((b, d), generator=g) * 2
+    probe = torch.randint(0, k, (b, p), generator=g, dtype=torch.int32)
+    probe[0] = probe[0, 0]
+    return [t.to(dev) for t in (q, probe, pay, scale, nsq, ids, cent, vecs)]
+
+
+GRID = [(12, 50, 96, 13, 8), (9, 77, 128, 31, 5), (5, 40, 768, 7, 4),
+        (6, 33, 24, 9, 3), (4, 20, 20, 5, 2)]
+
+
+@pytest.mark.parametrize("k,cap,d,b,p", GRID)
+def test_bucket_dots_kernel_matches_plain(dev, k, cap, d, b, p):
+    """B4 on caps that are not multiples of 32, D of 96, 128 and 768 (16-byte
+    loads) and 24 / 20 (single elements), an odd batch, a repeated probe."""
+    q, probe, *_, vecs = _bucket_case(dev, k, cap, d, b, p, seed=d + cap)
+    before = tbk.ivf_bucket_dots.launches
+    got = tbk.ivf_bucket_dots(q, probe, vecs)
+    torch.cuda.synchronize()
+    assert tbk.ivf_bucket_dots.launches == before + 1
+    ref = tbk.ivf_bucket_dots_plain(q, probe, vecs)
+    tol = 1e-5 * float(q.norm(dim=1).max() * vecs.float().norm(dim=2).max())
+    torch.testing.assert_close(got, ref, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("k,cap,d,b,p", GRID)
+def test_ivf8_kernel_matches_plain(dev, metric, k, cap, d, b, p):
+    """B2 on the same grid, l2 and ip, with empty (-1) slots."""
+    q, probe, pay, scale, nsq, ids, cent, _ = _bucket_case(
+        dev, k, cap, d, b, p, seed=d + cap + 1)
+    before = tbk.ivf8_bucket_scores.launches
+    got = tbk.ivf8_bucket_scores(q, probe, pay, scale, nsq, ids, cent, metric)
+    torch.cuda.synchronize()
+    assert tbk.ivf8_bucket_scores.launches == before + 1
+    ref = tbk.ivf8_bucket_scores_plain(q, probe, pay, scale, nsq, ids, cent,
+                                       metric)
+    assert torch.equal(torch.isneginf(got), torch.isneginf(ref))
+    assert bool(torch.isfinite(got[~torch.isneginf(got)]).all())
+    row = (cent.norm(dim=1)[:, None] + scale * pay.float().norm(dim=2)).max()
+    tol = 1e-5 * float(q.norm(dim=1).max() * row) * (2 if metric == "l2" else 1)
+    live = torch.isfinite(ref)
+    torch.testing.assert_close(got[live], ref[live], rtol=0, atol=tol)
+
+
+def test_ivf_engines_on_cuda_match_cpu(dev, monkeypatch):
+    """IvfEngine.search_pallas (B4) and IvfInt8Engine under
+    LEANN_IVF8_PALLAS=1 (B2) on the card against the same engines on the
+    CPU (plain versions), same centers."""
+    from leann_tpu_torch.ops.ivf import IvfEngine
+    from leann_tpu_torch.ops.ivf_int8 import IvfInt8Engine
+
+    rng = np.random.default_rng(8)
+    c = rng.standard_normal((40, 96)).astype(np.float32) * 4
+    x = (c[rng.integers(0, 40, 6000)]
+         + rng.standard_normal((6000, 96)).astype(np.float32))
+    q = x[rng.integers(0, 6000, 33)] + np.float32(0.05)
+    monkeypatch.setenv("LEANN_IVF8_PALLAS", "1")
+    for cls in (IvfEngine, IvfInt8Engine):
+        gpu = cls(x, n_clusters=64, metric="l2", device=dev)
+        cpu = cls(x, metric="l2", centers=gpu.centers, assign=gpu.assign,
+                  device="cpu")
+        search = "search_pallas" if cls is IvfEngine else "search"
+        gi, gs = getattr(gpu, search)(q, k=10, nprobe=8)
+        ci, cs = getattr(cpu, search)(q, k=10, nprobe=8)
+        overlap = np.mean([len(set(a.tolist()) & set(b.tolist())) / 10
+                           for a, b in zip(gi, ci)])
+        assert overlap >= 0.99
+        same = gi == ci
+        np.testing.assert_allclose(gs[same], cs[same], rtol=1e-5, atol=1e-4)

@@ -155,6 +155,53 @@ def test_plain_matches_reference_kernel(packed, metric, expansions, track):
     assert tf.fused_beam_search.launches == launches
 
 
+@pytest.mark.parametrize("metric,expansions,track", [
+    ("l2", 2, 160), ("ip", 1, 128)])
+def test_plain_query_groups_equal_reference_on_duplicates(metric, expansions,
+                                                          track):
+    """Query groups of qb=4 on a corpus where every row appears two or
+    three times, so converged beams hold equal int8 scores: a converged
+    query keeps taking (empty) merges while its group is active, and
+    the bitonic network reorders its ties, as in the Pallas kernel.
+    Queries are small integers, so every int8 dot is an exact integer in
+    float32 in any summation order: ids, scores and the visited log must
+    be equal exactly."""
+    n0, d, r, b, qb, L = 240, 128, 12, 16, 4, 16
+    base = _corpus(n0, d, seed=4)
+    rng = np.random.default_rng(4)
+    x = np.concatenate([base, base, base[: n0 // 2]])
+    x = x[rng.permutation(len(x))]
+    n = len(x)
+    adj = _graph(x, r, seed=4)
+    x1 = np.concatenate([x, np.zeros((1, d), np.float32)])
+    a1 = np.concatenate([adj, np.full((1, r), n, np.int32)])
+    jb, jm = jf.pack_fused(jnp.asarray(x1), jnp.asarray(a1))
+    tb, tm = tf.pack_fused(torch.from_numpy(x1), torch.from_numpy(a1))
+    q = np.clip(np.round(x[rng.integers(0, n, b)] * 4), -6, 6).astype(
+        np.float32)
+    medoid = 7
+    nsq = (x1 ** 2).sum(1)
+    seed_sc = (2.0 * q @ x1[medoid] - nsq[medoid] if metric == "l2"
+               else q @ x1[medoid]).astype(np.float32)
+    excl = np.full(b, -1, np.int32)
+    kw = dict(r=r, beam_width=L, max_iters=60, metric=metric,
+              expansions=expansions, qb=qb, ring_size=256,
+              track_visited=track)
+    jo = jf.fused_beam_search(
+        jnp.asarray(q), jnp.asarray(np.asarray(jb)), jnp.asarray(np.asarray(jm)),
+        jnp.full((b, 1), medoid, jnp.int32), jnp.asarray(seed_sc)[:, None],
+        jnp.asarray(excl), interpret=True, **kw)
+    to = tf.fused_beam_search(
+        torch.from_numpy(q), tb, tm, torch.full((b, 1), medoid, dtype=torch.int32),
+        torch.from_numpy(seed_sc[:, None].copy()), torch.from_numpy(excl), **kw)
+    assert len(to) == len(jo) == 3
+    sc = np.asarray(jo[1])
+    ties = (sc[:, 1:] == sc[:, :-1]) & np.isfinite(sc[:, 1:])
+    assert ties.any(), "the corpus must put tied scores in the beams"
+    for a, ref in zip(to, jo):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(ref))
+
+
 def test_engine_matches_reference_engine(packed):
     """FusedBeamEngine.search: top-10 overlap >= 0.99 with the reference
     engine, rescored scores rtol 1e-5 where ids agree; exclude honoured."""

@@ -122,7 +122,11 @@ def test_port_imports_no_jax_and_no_reference(tmp_path):
         from leann_tpu_torch.index import IndexBuilder, IndexSearcher
         from leann_tpu_torch.ops.fused_beam import FusedBeamEngine
         from leann_tpu_torch.ops.pq_beam import PqBeamEngine
-        from leann_tpu_torch.store import pqfile
+        from leann_tpu_torch.ops.bucket_kernels import (
+            ivf8_bucket_scores, ivf_bucket_dots)
+        from leann_tpu_torch.ops.ivf import IvfEngine
+        from leann_tpu_torch.ops.ivf_int8 import IvfInt8Engine
+        from leann_tpu_torch.store import ivffile, pqfile
         base = {str(tmp_path / "i" / "documents.leann")!r}
         texts = [f"doc {{i}}" for i in range(200)]
         vecs = FakeEmbedding(128).embed(texts)
@@ -138,6 +142,20 @@ def test_port_imports_no_jax_and_no_reference(tmp_path):
                           ksub=16, kmeans_iters=2, device="cpu")
         pq.search(vecs[:1], k=3)
         pqfile.save_pq(base, pq.codebooks, pq.codes, 200, "ip")
+        ivf = IvfEngine(vecs, n_clusters=8, device="cpu")
+        ivf.search_pallas(vecs[:2], k=3)
+        ivffile.IvfFile(ivf.centers, ivf.assign).save(base + ".ivf.npz")
+        ivf8 = IvfInt8Engine(vecs, n_clusters=8, device="cpu")
+        ivf8.search(vecs[:2], k=3)
+        import os
+        os.environ["LEANN_IVF8_PALLAS"] = "1"
+        ivf8.search(vecs[:2], k=3)
+        b = IndexBuilder(base + "2", dim=128, backend="ivf", device="cpu")
+        for i, (t, v) in enumerate(zip(texts, vecs)):
+            b.add(f"d{{i}}", t, v)
+        b.build()
+        res = IndexSearcher.load(base + "2", device="cpu").search(vecs[:2])
+        assert res[0][0].id == "d0", res[0][0].id
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m.startswith("jaxlib") or m == "leann_tpu"
@@ -169,13 +187,19 @@ def test_cuda_requested_without_cuda_raises(monkeypatch, tmp_path):
     assert dv.resolve_device("cpu").type == "cpu"
 
 
-def test_unported_backends_raise(tmp_path):
+def test_unported_backends_raise(tmp_path, monkeypatch):
+    """Sharded search and the IVF-PQ engine raise, naming their ROADMAP
+    item; the ivf backend itself builds and loads."""
     base = str(tmp_path / "i" / "documents.leann")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        IndexBuilder(base, dim=D, backend="ivf", device="cpu")
     _build(IndexBuilder, base, _texts(50), "flat", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         IndexSearcher.load(base, sharded=True, device="cpu")
+    ivf = str(tmp_path / "ivf" / "documents.leann")
+    _build(IndexBuilder, ivf, _texts(50), "ivf", device="cpu")
+    assert IndexSearcher.load(ivf, device="cpu").backend.engine.n == 50
+    monkeypatch.setenv("LEANN_IVF_ENGINE", "pq")
+    with pytest.raises(NotImplementedError, match="ROADMAP: Queue A 10"):
+        IndexSearcher.load(ivf, device="cpu")
 
 
 def test_bm25_sidecar_matches_reference(tmp_path):
