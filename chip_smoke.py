@@ -5,7 +5,9 @@
 Drives `leann_tpu_torch`'s main paths through the entry points a user
 calls (Vamana build -> fused graph search at D % 128 == 0; Vamana build
 -> PQ graph search at 96-d; IVF build -> bf16 bucket search; the
-residual-int8 IVF serving tier at 10M x 96), builds the CUDA kernels from
+residual-int8 IVF serving tier and the IVF-PQ tier at 10M x 96; the
+row-gather roofline; the BERT encoder at bert-base widths and `entry()`),
+builds the CUDA kernels from
 `leann_tpu_torch/csrc/` (one nvcc per source, all started together), and
 holds each against its plain PyTorch version. Phases, one JSON line each
 on stdout:
@@ -23,7 +25,10 @@ on stdout:
            on small grids: D of 96, 128, 768 (16-byte loads) and 24 / 20
            (single elements), caps not multiples of 32, odd batches,
            empty (-1) slots, a probe list that repeats one bucket; l2
-           and ip for ivf8
+           and ip for ivf8;
+           gather_score vs gather_score_plain: D of 96, 128, 64 (16-byte
+           loads), 100 (4-byte) and 50 (single bytes), R of 48, 128, 7
+           and 200, odd batches, duplicate ids and the rows 0 and N-1
   rag      StreamingIndexBuilder over 20,000 fake-embedded 768-d
            passages (backend hnsw, R=32, L=64, ip), then
            IndexSearcher.search on 256 passage texts at complexity 64
@@ -52,12 +57,39 @@ on stdout:
            LEANN_IVF8_PALLAS=1 (kernel ivf8_bucket_scores) and without
            (torch scan): recall@10 on 1024 queries, device QPS at batches
            512 and 2048, calibrate_nprobe(0.95), a profile of each path
+  gather   `evals.gather_roofline.run` at the reference's default shape:
+           a 10M x 128 int8 corpus made on the card, B=2048, R=48, 50
+           calls per CUDA-event window on distinct ids; the plain gather
+           + product and kernel gather_score: rows/s, effective GB/s, the
+           traversal-QPS ceiling; each held against the plain version on
+           the window's first call
+  ivfpq    `evals/ivfpq_device_check.py`'s configuration on the ivf8
+           phase's corpus, centers and assignment: IvfPqEngine(m=16,
+           ksub=256, rescore="int8") at 10M x 96 l2, nprobe 16,
+           rescore_factor 16: build seconds by step, bytes of codes, norms
+           and the int8 corpus, recall@10 on 1024 queries, device QPS at
+           batch 2048, a profile of one window, calibrate_nprobe(0.95);
+           then IvfSearcher under LEANN_IVF_ENGINE=pq over the ivf phase's
+           1M x 128 corpus and centers (it must pick IvfPqEngine with the
+           f32 rescore): recall@10 at nprobe 8 beside the ivf phase's. No
+           kernel may launch (the scan is plain PyTorch, as the
+           reference's is XLA)
   rag_ivf  the rag phase's 20,000 passages built with backend "ivf" (ip)
            through StreamingIndexBuilder: the meta's calibrated nprobe,
            then IndexSearcher.search on 256 passage texts: self-hit@1 and
            recall@10 against exact at that nprobe; no kernel may launch
            (IvfSearcher serves the torch scan, as the reference's serves
            XLA's)
+  encode   BertEncoder(BertConfig()) at the published bert-base widths
+           (768 hidden, 12 layers, 12 heads, 3072, vocab 30522) with
+           seeded random weights and the hash tokenizer: the rag phase's
+           20,000 texts through LocalEmbedding at batch 128 (texts/s, ms
+           per batch by CUDA events), the bf16 run against the float32
+           run on 256 texts, the bf16 product with a float32 result
+           against the widened float32 product; the rag index built from
+           these vectors (backend hnsw) and searched with 256 encoded
+           passage texts: self-hit@1 and recall@10 beside the fake
+           embedder's; then `entry()` on the card against its CPU run
   kernels_main
            each kernel vs its plain version at every shape the main
            paths launched it with: fused_beam_search at rag build (D=768,
@@ -66,11 +98,15 @@ on stdout:
            (1M, B=2048); pq_beam_search at deep search (1M, B=2048, beam
            64 and DEEP_BEAM); ivf_bucket_dots at the ivf phase's search
            (B=2048, nprobe 8) and ivf8_bucket_scores at the ivf8 phase's
-           (B=512 and 2048); each timed beside its bound, the bucket
-           kernels also beside torch.bmm over buckets gathered beforehand
+           (B=512 and 2048); gather_score at the gather phase's (10M x
+           128, B=2048, R=48, distinct ids per call); each timed beside
+           its bound, the bucket kernels also beside torch.bmm over
+           buckets gathered beforehand, gather_score beside `corpus[ids]`
+           + torch.bmm in bf16, both inside the timed window
 
 The counts of kernel launches are set to 0 just before each main-path
-phase (rag, sift, deep, ivf, ivf8, rag_ivf) and read just after it. Any failure exits
+phase (rag, sift, deep, ivf, ivf8, gather, ivfpq, rag_ivf, encode) and
+read just after it. Any failure exits
 non-zero with no `ok` line. The last lines are the kernel table, the
 card's `nvidia-smi` name and power limit, and {"ok": true, "device": ...}.
 """
@@ -117,6 +153,17 @@ NPROBE = 8
 IVF_MIN_RECALL = 0.95
 IVF8_MIN_RECALL = 0.924  # the first card run (0.9444) less 0.02
 RAG_IVF_MIN_RECALL = 0.9
+GATHER_N = 10_000_000  # the roofline's default corpus: 10M x 128 int8
+IVFPQ_NPROBE = 16      # evals/ivfpq_device_check.py's defaults
+IVFPQ_RESCORE_FACTOR = 16
+# the first card run's recall@10 less 0.02: 0.8720 at 10M x 96 (nprobe 16,
+# the ADC top-160 is the loss) and 0.8810 through IvfSearcher at 1M x 128
+IVFPQ_MIN_RECALL = 0.852
+IVFPQ_1M_MIN_RECALL = 0.861
+# the rag index on the encoder's vectors: the first card run gave self-hit@1
+# 1.0 and recall@10 0.9992 at complexity 1024
+ENCODE_MIN_HIT1 = 0.99
+ENCODE_MIN_RECALL = 0.979
 
 FUSED = dict(
     name="fused_beam_search",
@@ -141,6 +188,12 @@ IVF8 = dict(
     route="cuda",
     source="leann_tpu_torch/csrc/ivf8_scan.cu",
     replaces="leann_tpu/ops/pallas_kernels.py:167",
+)
+GATHER = dict(
+    name="gather_score",
+    route="cuda",
+    source="leann_tpu_torch/csrc/gather_score.cu",
+    replaces="leann_tpu/ops/gather_score.py:48",
 )
 
 
@@ -464,6 +517,70 @@ def check_case_bucket(torch, label, kind, args, metric, reps, library=False):
     return out
 
 
+def gather_bound(b, r, d):
+    """(bound ms, "bytes" or "operations") of one gather_score call: the
+    B*R gathered rows (D bytes each), the ids, the queries and the output,
+    each once; 2*D fp32 operations per row."""
+    bytes_ = b * r * d + b * r * 4 + b * d * 4 + b * r * 4
+    t_bytes = bytes_ / H100_BYTES_PER_S
+    t_ops = 2 * b * r * d / H100_FP32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_case_gather(torch, label, corpus, ids, q, library=False):
+    """gather_score vs gather_score_plain on the card, on the first
+    [B, R] block of the id window `ids` [M, B, R]: within 1e-5 x |q| x
+    (largest gathered row norm), since both add the same exact products
+    in another order. Times are per call over three passes of the M
+    blocks of the window after a warm pass, by the roofline's
+    `window_ms` (distinct ids per call, so a call does not find its rows
+    in L2 from the call before; each pass queued behind other device
+    work, since a launch costs the host more than the card at these
+    sizes); `kernel_device_ms` is the kernel's own time by torch.profiler
+    over one pass. With `library`, also `corpus[ids]` widened to bf16
+    then torch.bmm, both inside the timed window, a yardstick the port
+    never calls. Raises on disagreement."""
+    from leann_tpu_torch.evals.gather_roofline import window_ms
+    from leann_tpu_torch.ops import gather_score as gs
+
+    m, b, r = ids.shape
+    d = corpus.shape[1]
+    got = gs.gather_score(corpus, ids[0], q)
+    ref = gs.gather_score_plain(corpus, ids[0], q)
+    err = float((got - ref).abs().max())
+    nan = bool(torch.isnan(got).any())
+    tol = 1e-5 * float(q.norm(dim=1).max()) * float(
+        corpus[ids[0].long()].float().norm(dim=2).max())
+
+    def per_call(fn):
+        window_ms(fn, ids, q.device)                            # warm
+        return float(np.mean([window_ms(fn, ids, q.device)
+                              for _ in range(3)])) / m
+
+    ms = per_call(lambda i: gs.gather_score(corpus, i, q))
+    plain_ms = per_call(lambda i: gs.gather_score_plain(corpus, i, q))
+    bound_ms, bound_by = gather_bound(b, r, d)
+    lib_ms = device_ms = None
+    if library:
+        qb = q.to(torch.bfloat16)[:, :, None]
+        lib_ms = per_call(lambda i: torch.bmm(
+            corpus[i.long()].to(torch.bfloat16), qb))
+        prof = profile(torch, lambda: [gs.gather_score(corpus, i, q)
+                                       for i in ids])
+        device_ms = sum(v for k, v in prof["kernels_ms"].items()
+                        if "gather_score" in k) / m
+    out = {"case": label, "n": corpus.shape[0], "b": b, "r": r, "d": d,
+           "calls": m, "exact": bool(torch.equal(got, ref)),
+           "max_abs_err": err, "tol": tol, "ms": ms,
+           "kernel_device_ms": device_ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+    if nan or not err <= tol:
+        raise AssertionError(f"gather_score disagrees with its plain "
+                             f"version: {json.dumps(out)}")
+    return out
+
+
 # ------------------------------------------------------------------ phases
 
 
@@ -485,13 +602,14 @@ def phase_env(torch):
 def phase_build():
     from leann_tpu_torch.ops import _cuda
 
-    libs = ("fused_beam", "pq_beam", "ivf_bucket_dots", "ivf8_scan")
+    libs = ("fused_beam", "pq_beam", "ivf_bucket_dots", "ivf8_scan",
+            "gather_score")
     t0 = time.perf_counter()
     _cuda.build(libs)
     for name in libs:
         _cuda.load(name)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "sources": [k["source"] for k in (FUSED, PQ, DOTS, IVF8)]})
+          "sources": [k["source"] for k in (FUSED, PQ, DOTS, IVF8, GATHER)]})
 
 
 def phase_kernels(torch, dev):
@@ -603,6 +721,31 @@ def phase_kernels_ivf(torch, dev):
     return dots, ivf8
 
 
+def phase_kernels_gather(torch, dev):
+    """gather_score vs its plain version on random corpora: D with
+    16-byte loads (96, 128, 64), 4-byte loads (100) and single bytes
+    (50), R from 7 to 200, odd batches; every query's first two ids are
+    the rows N-1 and 0 and one query's ids are all the same row."""
+    g = torch.Generator().manual_seed(9)
+    rows = []
+    for n, b, d, r in ((5000, 17, 96, 48), (5000, 31, 128, 128),
+                       (3000, 9, 64, 7), (2000, 5, 50, 200),
+                       (4000, 33, 100, 48), (4000, 1, 128, 48)):
+        corpus = torch.randint(-128, 128, (n, d), generator=g,
+                               dtype=torch.int8)
+        ids = torch.randint(0, n, (4, b, r), generator=g, dtype=torch.int32)
+        ids[:, :, 0], ids[:, :, 1] = n - 1, 0
+        ids[:, b // 2, :] = 7
+        q = torch.randn((b, d), generator=g) * 2
+        rows.append(check_case_gather(
+            torch, f"N{n}/B{b}/D{d}/R{r}", corpus.to(dev), ids.to(dev),
+            q.to(dev)))
+    emit({"phase": "kernels", "kernel": GATHER["name"], "cases": rows,
+          "bit_equal_cases": sum(c["exact"] for c in rows),
+          "library_ms": None})
+    return rows
+
+
 def rag_texts(n_docs):
     rng = np.random.default_rng(11)
     words = [f"w{i}" for i in range(5000)]
@@ -610,37 +753,33 @@ def rag_texts(n_docs):
                  for i in range(n_docs)]
 
 
-def phase_rag(torch, dev, n_docs, counter):
-    from leann_tpu_torch.embed.fake import FakeEmbedding
+def rag_build_search(torch, dev, name, texts, vecs, q, pick, counter):
+    """The rag path on given embeddings: StreamingIndexBuilder (backend
+    hnsw, R=32, L=64, ip) over `texts` / `vecs`, then IndexSearcher.search
+    of the query vectors `q` (the embeddings of texts[pick]) at
+    complexity 64 and RAG_COMPLEXITY. Returns (engine, metrics)."""
     from leann_tpu_torch.index import (
         IndexSearcher, SearchOptions, StreamingIndexBuilder,
     )
     from leann_tpu_torch.ops.distance import ExactEngine
     from leann_tpu_torch.store.passages import Passage
 
-    rng, texts = rag_texts(n_docs)
-    emb = FakeEmbedding(768)
-    t0 = time.perf_counter()
-    vecs = emb.embed(texts)
-    embed_s = time.perf_counter() - t0
-
     with tempfile.TemporaryDirectory() as tmp:
-        base = os.path.join(tmp, "indexes", "rag", "documents.leann")
-        builder = StreamingIndexBuilder(base, dim=768, backend="hnsw",
-                                        metric="ip", device=dev)
+        base = os.path.join(tmp, "indexes", name, "documents.leann")
+        index = StreamingIndexBuilder(base, dim=vecs.shape[1],
+                                      backend="hnsw", metric="ip",
+                                      device=dev)
         for i, (t, v) in enumerate(zip(texts, vecs)):
-            builder.add_passage(Passage(id=f"p{i}", text=t,
-                                        metadata={"n": i}), v)
+            index.add_passage(Passage(id=f"p{i}", text=t,
+                                      metadata={"n": i}), v)
         c0 = counter()
         t0 = time.perf_counter()
-        builder.build(graph_degree=32, complexity=64, alpha=1.2)
+        index.build(graph_degree=32, complexity=64, alpha=1.2)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         build_launches = counter() - c0
 
         searcher = IndexSearcher.load(base, device=dev)
-        pick = rng.choice(n_docs, 256, replace=False)
-        q = emb.embed([texts[i] for i in pick])
         oracle = ExactEngine(vecs, metric="ip", device=dev).search(
             q, k=10, exact_scan=True)[0]
         c0 = counter()
@@ -657,25 +796,43 @@ def phase_rag(torch, dev, n_docs, counter):
         engine = searcher.backend.engine
 
     res, search_s, rec = out[RAG_COMPLEXITY]
-    rec64 = out[64][2]
     hit1 = float(np.mean([bool(r) and r[0].id == f"p{i}"
                           for r, i in zip(res, pick)]))
-    emit({"phase": "rag", "n": n_docs, "dim": 768, "embed_s": embed_s,
-          "build_s": build_s, "queries": 256,
-          "engine": type(engine).__name__,
-          "complexity": RAG_COMPLEXITY, "search_s": search_s,
-          "self_hit1": hit1, "recall10": rec,
-          "recall10_at_complexity_64": rec64,
-          "search_s_at_complexity_64": out[64][1],
-          "launches_build": build_launches,
-          "launches_search": search_launches})
+    return engine, {
+        "n": len(texts), "dim": vecs.shape[1], "build_s": build_s,
+        "queries": len(pick), "engine": type(engine).__name__,
+        "complexity": RAG_COMPLEXITY, "search_s": search_s,
+        "self_hit1": hit1, "recall10": rec,
+        "recall10_at_complexity_64": out[64][2],
+        "search_s_at_complexity_64": out[64][1],
+        "launches_build": build_launches,
+        "launches_search": search_launches}
+
+
+def phase_rag(torch, dev, n_docs, counter):
+    from leann_tpu_torch.embed.fake import FakeEmbedding
+
+    rng, texts = rag_texts(n_docs)
+    emb = FakeEmbedding(768)
+    t0 = time.perf_counter()
+    vecs = emb.embed(texts)
+    embed_s = time.perf_counter() - t0
+    pick = rng.choice(n_docs, 256, replace=False)
+    q = emb.embed([texts[i] for i in pick])
+    engine, row = rag_build_search(torch, dev, "rag", texts, vecs, q, pick,
+                                   counter)
+    emit({"phase": "rag", "embed_s": embed_s, **row})
+    hit1, rec, rec64 = (row["self_hit1"], row["recall10"],
+                        row["recall10_at_complexity_64"])
     if hit1 < 0.99 or rec < 0.95 or rec64 < RAG_MIN_RECALL_64:
         raise AssertionError(f"rag: self-hit@1 {hit1}, recall@10 {rec} at "
                              f"complexity {RAG_COMPLEXITY}, {rec64} at 64")
-    if build_launches <= 0 or search_launches <= 0:
+    if row["launches_build"] <= 0 or row["launches_search"] <= 0:
         raise AssertionError("rag: the fused kernel was not launched "
-                             f"(build {build_launches}, search {search_launches})")
-    return engine, torch.from_numpy(np.asarray(q, np.float32)).to(dev), pick
+                             f"(build {row['launches_build']}, search "
+                             f"{row['launches_search']})")
+    return (engine, torch.from_numpy(np.asarray(q, np.float32)).to(dev),
+            pick, row)
 
 
 def phase_sift(torch, dev, n, counter):
@@ -917,7 +1074,10 @@ def phase_ivf(torch, dev, n, counter):
     if torch_launches or kernel_launches <= 0:
         raise AssertionError("ivf: the kernel path must launch "
                              "ivf_bucket_dots and the torch scan must not")
-    return eng, windows[0][0]
+    data = {"corpus": corpus, "queries": queries, "oracle": oracle,
+            "centers": eng.centers, "assign": eng.assign,
+            "recall10": rec_torch}
+    return eng, windows[0][0], data
 
 
 def phase_ivf8(torch, dev, n, counter):
@@ -989,7 +1149,9 @@ def phase_ivf8(torch, dev, n, counter):
     if launches["torch"] or launches["kernel"] <= 0:
         raise AssertionError("ivf8: LEANN_IVF8_PALLAS=1 must launch "
                              "ivf8_bucket_scores and the torch scan must not")
-    return eng, batches
+    data = {"corpus": corpus, "queries": queries, "oracle": oracle,
+            "centers": centers, "assign": assign, "recall10": rec["kernel"]}
+    return eng, batches, data
 
 
 def phase_rag_ivf(torch, dev, n_docs, counter):
@@ -1052,13 +1214,248 @@ def phase_rag_ivf(torch, dev, n_docs, counter):
                              "serve the torch scan")
 
 
-def phase_kernels_main(torch, rag, sift, deep, ivf, ivf8):
+def phase_gather(torch, dev, n, counter):
+    """The row-gather roofline through its entry point
+    (`leann_tpu_torch.evals.gather_roofline.run`) at the reference's
+    default shape: both engines, rows/s and effective GB/s; `run` holds
+    each engine against the plain version on the window's first call."""
+    from leann_tpu_torch.evals import gather_roofline
+
+    b, r, d = 2048, 48, 128
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    corpus = gather_roofline.make_corpus(n, d, gen, dev)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    rows = gather_roofline.run(n=n, b=b, r=r, m_scan=50, reps=10, d=d,
+                               device=dev, corpus=corpus)
+    by = {row["engine"]: row for row in rows}
+    emit({"phase": "gather", "n": n, "d": d, "b": b, "r": r,
+          "corpus_gb": n * d / 1e9, "gen_s": gen_s, "rows": rows,
+          "kernel_over_torch": (by["gather-cuda"]["rows_per_s"]
+                                / by["gather-torch"]["rows_per_s"]),
+          "launches": counter()})
+    ids = torch.randint(0, n, (20, b, r), generator=gen, device=dev,
+                        dtype=torch.int32)
+    q = torch.randn((b, d), generator=gen, device=dev)
+    return corpus, ids, q
+
+
+def phase_ivfpq(torch, dev, n, counter, big, small):
+    """IVF-PQ at `evals/ivfpq_device_check.py`'s configuration on the ivf8
+    phase's corpus, centers and assignment (`big`), then IvfSearcher
+    under LEANN_IVF_ENGINE=pq over the ivf phase's (`small`). The scan is
+    plain PyTorch: no kernel may launch."""
+    from types import SimpleNamespace
+
+    from leann_tpu_torch.backend import IvfSearcher
+    from leann_tpu_torch.ops.ivf_pq import IvfPqEngine
+
+    corpus, queries, oracle = big["corpus"], big["queries"], big["oracle"]
+    d, batch, m = corpus.shape[1], 2048, 4
+    pq_m = next(mm for mm in (16, 12, 8) if d % mm == 0)
+    t0 = time.perf_counter()
+    eng = IvfPqEngine(corpus, metric="l2", m=pq_m, rescore="int8",
+                      centers=big["centers"], assign=big["assign"],
+                      device=dev)
+    torch.cuda.synchronize()
+    engine_s = time.perf_counter() - t0
+    kw = dict(k=10, nprobe=IVFPQ_NPROBE, rescore_factor=IVFPQ_RESCORE_FACTOR)
+    t0 = time.perf_counter()
+    rec = recall_at(eng.search(queries, **kw)[0], oracle)
+    search_s = time.perf_counter() - t0
+    windows = [torch.from_numpy(noisy_rows(corpus, (m, batch), 4000 + w)).to(dev)
+               for w in range(3)]
+    fn = lambda q: eng.search_device(q, **kw)
+    per_batch, qps = qps_windows(torch, fn, windows)
+    prof = profile(torch, lambda: [fn(q) for q in windows[1]])
+    many = eng.search_many_device(windows[0][:1], **kw)
+    one = eng.search_device(windows[0][0], **kw)
+    if not (torch.equal(many[0][0], one[0]) and torch.equal(many[1][0], one[1])):
+        raise AssertionError("ivfpq: search_many_device differs from "
+                             "search_device on the same batch")
+    t0 = time.perf_counter()
+    cal_nprobe, cal_rec = eng.calibrate_nprobe(0.95)
+    calibrate_s = time.perf_counter() - t0
+
+    with env_var("LEANN_IVF_ENGINE", "pq"):
+        t0 = time.perf_counter()
+        searcher = IvfSearcher(
+            small["corpus"], SimpleNamespace(centers=small["centers"],
+                                             assign=small["assign"]),
+            metric="l2", device=dev)
+        torch.cuda.synchronize()
+        searcher_s = time.perf_counter() - t0
+    small_eng = searcher.engine
+    rec_1m = recall_at(searcher.search(small["queries"], k=10,
+                                       complexity=2 * NPROBE)[0],
+                       small["oracle"])
+    emit({"phase": "ivfpq", "n": n, "d": d, "m": pq_m, "ksub": eng.ksub,
+          "rescore": eng.rescore, "nprobe": IVFPQ_NPROBE,
+          "rescore_factor": IVFPQ_RESCORE_FACTOR,
+          "buckets": eng.bucket_cent.shape[0], "cap": eng.cap,
+          "engine_s": engine_s, "engine_steps_s": eng.build_seconds,
+          "codes_bytes": eng.bucket_codes.numel(),
+          "norms_bytes": eng.bucket_nsq.numel() * 4,
+          "ids_bytes": eng.bucket_ids.numel() * 4,
+          "rescore_corpus_bytes": eng.corpus.numel(),
+          "bf16_engine_bytes": n * d * 6,
+          "queries": len(queries), "recall10": rec,
+          "recall10_ivf8_nprobe8": big["recall10"], "search_s": search_s,
+          "batch": batch, "ms_per_batch": per_batch, "qps_windows": qps,
+          "qps_mean": float(np.mean(qps)), "profile": prof,
+          "calibrated_nprobe": cal_nprobe, "calibrated_recall10": cal_rec,
+          "calibrate_s": calibrate_s,
+          "searcher_1m": {
+              "n": small_eng.n, "d": small_eng.d,
+              "engine": type(small_eng).__name__,
+              "rescore": getattr(small_eng, "rescore", None),
+              "m": getattr(small_eng, "m", None), "engine_s": searcher_s,
+              "nprobe": NPROBE, "recall10": rec_1m,
+              "recall10_ivf_engine": small["recall10"]}})
+    if type(small_eng).__name__ != "IvfPqEngine" or small_eng.rescore != "f32":
+        raise AssertionError(
+            f"ivfpq: IvfSearcher chose {type(small_eng).__name__} with "
+            f"rescore {getattr(small_eng, 'rescore', None)}, not "
+            "IvfPqEngine with f32")
+    if rec < IVFPQ_MIN_RECALL or rec_1m < IVFPQ_1M_MIN_RECALL:
+        raise AssertionError(f"ivfpq: recall@10 {rec} at 10M, {rec_1m} "
+                             "through IvfSearcher at 1M")
+    if counter():
+        raise AssertionError("ivfpq: a kernel launched; the IVF-PQ scan is "
+                             "plain PyTorch")
+
+
+def phase_encode(torch, dev, n_docs, counter, fake_row):
+    """The BERT encoder at the published bert-base widths (seeded random
+    weights, hash tokenizer) through LocalEmbedding, the rag index built
+    and searched on its vectors, and `entry()` on the card against its
+    CPU run."""
+    from leann_tpu_torch.embed import LocalEmbedding
+    from leann_tpu_torch.entry import entry
+    from leann_tpu_torch.models import bert
+
+    rng, texts = rag_texts(n_docs)
+    t0 = time.perf_counter()
+    enc = bert.BertEncoder(bert.BertConfig(), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = enc.config
+    emb = LocalEmbedding(encoder=enc, batch_size=128)
+    emb.embed(texts[:256])                                      # warm
+    t0 = time.perf_counter()
+    embed_ms, vecs = cuda_ms(lambda: emb.embed(texts), 1)
+    embed_s = time.perf_counter() - t0
+    batches = -(-n_docs // 128)
+    tok, mask = enc.tokenizer.encode_batch(texts[:128])
+    tlen = bert._bucket_len(tok.shape[1], cap=enc.max_length)
+    ids_pad = np.zeros((128, tlen), np.int32)
+    mask_pad = np.zeros((128, tlen), np.int32)
+    ids_pad[:, :tok.shape[1]], mask_pad[:, :tok.shape[1]] = tok, mask
+    ids_dev = torch.from_numpy(ids_pad).to(dev)
+    mask_dev = torch.from_numpy(mask_pad).to(dev)
+
+    def forward(config):
+        with torch.no_grad():
+            return bert.bert_forward(enc.params, ids_dev, mask_dev, config)
+
+    import dataclasses
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    forward(cfg), forward(cfg32)
+    forward_ms = cuda_ms(lambda: forward(cfg), 10)[0]
+    forward_f32_ms = cuda_ms(lambda: forward(cfg32), 3)[0]
+    forward_profile = profile(torch, lambda: forward(cfg))
+
+    # the bf16 product with a float32 result against the widened product
+    g = torch.Generator(device=dev).manual_seed(3)
+    a = torch.randn((1, 128 * tlen, cfg.hidden_size), generator=g, device=dev)
+    w = torch.randn((1, cfg.hidden_size, cfg.intermediate_size), generator=g,
+                    device=dev) / np.sqrt(cfg.hidden_size)
+    widened = lambda: torch.bmm(a.to(torch.bfloat16).float(),
+                                w.to(torch.bfloat16).float())
+    want = widened()
+    got = bert._mm(a, w, True)
+    product = {"bf16_operands": bert._bf16_operands(dev),
+               "max_abs_err": float((got - want).abs().max()),
+               "ms": cuda_ms(lambda: bert._mm(a, w, True), 10)[0],
+               "widened_f32_ms": cuda_ms(widened, 3)[0]}
+
+    # bf16 against float32 through the encoder on 256 texts
+    pick = rng.choice(n_docs, 256, replace=False)
+    picked = [texts[i] for i in pick]
+    q = emb.embed(picked)
+    enc32 = bert.BertEncoder(cfg, compute_dtype="float32", device=dev)
+    q32 = enc32.embed(picked, batch_size=128)
+    del enc32
+    cos = (q * q32).sum(1)
+    self_err = float(np.abs(q - vecs[pick]).max())
+
+    engine, row = rag_build_search(torch, dev, "rag_bert", texts, vecs, q,
+                                   pick, counter)
+    # how close the corpus vectors sit: random weights pool every text
+    # near one direction, which is what the search has to separate
+    sample = vecs[rng.choice(n_docs, 512, replace=False)]
+    off = (sample @ sample.T)[~np.eye(512, dtype=bool)]
+
+    # entry() on the card against its run on the CPU
+    fn, args = entry(device=dev)
+    ids, sc = fn(*args)
+    torch.cuda.synchronize()
+    cfn, cargs = entry(device="cpu")
+    cids, csc = cfn(*cargs)
+    with torch.no_grad():
+        cq = bert.bert_forward(cargs[0], cargs[1], cargs[2],
+                               bert.BertConfig.tiny())
+    top = torch.sort(cq @ cargs[3][:-1].T, dim=1, descending=True)[0][:, :11]
+    clear = ((top[:, 9] - top[:, 10]) > 1e-3).numpy()
+    ids_np, cids_np = ids.cpu().numpy(), cids.numpy()
+    same_sets = np.array([set(a.tolist()) == set(b.tolist())
+                          for a, b in zip(ids_np, cids_np)])
+    entry_row = {"shape": list(ids.shape), "rows_clear": int(clear.sum()),
+                 "rows_equal_as_sets": int(same_sets.sum()),
+                 "positions_equal": float((ids_np == cids_np).mean()),
+                 "max_score_diff": float((sc.cpu() - csc).abs().max()),
+                 "finite": bool(torch.isfinite(sc).all())}
+
+    emit({"phase": "encode", "config": dataclasses.asdict(cfg),
+          "tokens_per_text": int(mask.sum(1).max()), "padded_length": tlen,
+          "init_s": init_s, "embed_s": embed_s,
+          "texts_per_s": n_docs / (embed_ms / 1e3),
+          "ms_per_batch": embed_ms / batches, "batch": 128,
+          "forward_ms": forward_ms, "forward_f32_ms": forward_f32_ms,
+          "forward_profile": forward_profile,
+          "bf16_product": product,
+          "bf16_vs_f32_cos_min": float(cos.min()),
+          "query_vs_corpus_max_abs": self_err,
+          "corpus_cos_mean": float(off.mean()),
+          "corpus_cos_max": float(off.max()),
+          "rag": row, "rag_fake": {k: fake_row[k] for k in (
+              "self_hit1", "recall10", "recall10_at_complexity_64")},
+          "entry": entry_row})
+    if not np.isfinite(vecs).all() or vecs.shape != (n_docs, cfg.hidden_size):
+        raise AssertionError("encode: embeddings not finite or misshapen")
+    if float(cos.min()) < 0.999:
+        raise AssertionError(f"encode: bf16 vs float32 cosine {cos.min()}")
+    if product["max_abs_err"] > 1e-3:
+        raise AssertionError(f"encode: bf16 product {product}")
+    if row["self_hit1"] < ENCODE_MIN_HIT1 or row["recall10"] < ENCODE_MIN_RECALL:
+        raise AssertionError(f"encode: rag on encoder vectors {row}")
+    if row["launches_build"] <= 0 or row["launches_search"] <= 0:
+        raise AssertionError("encode: the fused kernel was not launched")
+    if (list(ids.shape) != [16, 10] or not entry_row["finite"]
+            or not same_sets[clear].all() or clear.sum() < 4):
+        raise AssertionError(f"encode: entry() {entry_row}")
+
+
+def phase_kernels_main(torch, rag, sift, deep, ivf, ivf8, gather):
     """Each kernel against its plain version at the shapes the main paths
     launched it with. The build cases take the builder's final-pass
     arguments (L = complexity, max_iters 2L+16, visited log 2L, medoid
     seed, the point itself excluded) on the finished graph; the search
     cases take the engines' own arguments; the bucket kernels take the
-    engines' tables and the probes of their centroid top-8."""
+    engines' tables and the probes of their centroid top-8; gather_score
+    takes the roofline's corpus and a window of distinct ids."""
     from leann_tpu_torch.ops.distance import pairwise_scores, topk_stable
     from leann_tpu_torch.ops.fused_beam import wave_kernel_args
 
@@ -1068,7 +1465,7 @@ def phase_kernels_main(torch, rag, sift, deep, ivf, ivf8):
             ids, eng.r, beam, 2 * beam + 16, eng.metric, expansions=2,
             track_visited=2 * beam)
 
-    rag_eng, rag_q, pick = rag
+    rag_eng, rag_q, pick = rag[:3]
     sift_eng, sift_q, sift_l = sift
     dev = rag_q.device
 
@@ -1116,7 +1513,13 @@ def phase_kernels_main(torch, rag, sift, deep, ivf, ivf8):
         library=True) for b, q in sorted(ivf8_q.items())]
     emit({"phase": "kernels_main", "kernel": IVF8["name"], "cases": ivf8_rows,
           "library_ms": ivf8_rows[-1]["library_ms"]})
-    return rows, pq_rows, dots_rows, ivf8_rows
+    g_corpus, g_ids, g_q = gather
+    gather_rows = [check_case_gather(torch, "gather roofline", g_corpus,
+                                     g_ids, g_q, library=True)]
+    emit({"phase": "kernels_main", "kernel": GATHER["name"],
+          "cases": gather_rows,
+          "library_ms": gather_rows[-1]["library_ms"]})
+    return rows, pq_rows, dots_rows, ivf8_rows, gather_rows
 
 
 def main() -> int:
@@ -1130,21 +1533,23 @@ def main() -> int:
         ivf8_bucket_scores, ivf_bucket_dots,
     )
     from leann_tpu_torch.ops.fused_beam import fused_beam_search
+    from leann_tpu_torch.ops.gather_score import gather_score
     from leann_tpu_torch.ops.pq_beam import pq_beam_search
 
     wrappers = {FUSED["name"]: fused_beam_search, PQ["name"]: pq_beam_search,
-                DOTS["name"]: ivf_bucket_dots, IVF8["name"]: ivf8_bucket_scores}
+                DOTS["name"]: ivf_bucket_dots, IVF8["name"]: ivf8_bucket_scores,
+                GATHER["name"]: gather_score}
     launches = dict.fromkeys(wrappers, 0)
 
-    def drive(phase, kernel, n):
+    def drive(phase, kernel, n, *extra):
         """One main-path phase, every count set to 0 just before it and
         read just after; the phase's kernel must have launched (with
-        kernel None, no kernel may launch)."""
+        kernel None, no kernel may launch). `extra` goes to the phase."""
         for w in wrappers.values():
             w.launches = 0
         count = ((lambda: sum(w.launches for w in wrappers.values()))
                  if kernel is None else (lambda: wrappers[kernel].launches))
-        out = phase(torch, dev, n, count)
+        out = phase(torch, dev, n, count, *extra)
         got = {k: w.launches for k, w in wrappers.items()}
         emit({"phase": phase.__name__[len("phase_"):], "launches": got})
         if kernel is None and any(got.values()):
@@ -1162,26 +1567,32 @@ def main() -> int:
     rows = phase_kernels(torch, dev)
     pq_grid = phase_kernels_pq(torch, dev)
     dots_grid, ivf8_grid = phase_kernels_ivf(torch, dev)
+    gather_grid = phase_kernels_gather(torch, dev)
 
     rag = drive(phase_rag, FUSED["name"], RAG_N)
     sift = drive(phase_sift, FUSED["name"], SIFT_N)
     deep = drive(phase_deep, PQ["name"], DEEP_N)
-    ivf = drive(phase_ivf, DOTS["name"], IVF_N)
-    ivf8 = drive(phase_ivf8, IVF8["name"], IVF8_N)
+    *ivf, ivf_data = drive(phase_ivf, DOTS["name"], IVF_N)
+    *ivf8, ivf8_data = drive(phase_ivf8, IVF8["name"], IVF8_N)
+    gather = drive(phase_gather, GATHER["name"], GATHER_N)
+    drive(phase_ivfpq, None, IVF8_N, ivf8_data, ivf_data)
+    del ivf_data, ivf8_data
     drive(phase_rag_ivf, None, RAG_N)
-    main_rows, pq_main, dots_main, ivf8_main = phase_kernels_main(
-        torch, rag, sift, deep, ivf, ivf8)
+    drive(phase_encode, FUSED["name"], RAG_N, rag[3])
+    main_rows, pq_main, dots_main, ivf8_main, gather_main = phase_kernels_main(
+        torch, rag, sift, deep, ivf, ivf8, gather)
 
     # the table rows: times at each kernel's serving shape (sift search,
     # 1M, B=2048; deep search, 1M, B=2048, beam DEEP_BEAM; ivf search,
-    # 1M, B=2048; ivf8 search, 10M, B=2048), the worst error over every
-    # comparison
+    # 1M, B=2048; ivf8 search, 10M, B=2048; the gather roofline, 10M x
+    # 128, B=2048, R=48), the worst error over every comparison
     kernels = []
     for info, serve, all_rows in (
             (FUSED, main_rows[-1], rows + main_rows),
             (PQ, pq_main[-1], pq_grid + pq_main),
             (DOTS, dots_main[-1], dots_grid + dots_main),
-            (IVF8, ivf8_main[-1], ivf8_grid + ivf8_main)):
+            (IVF8, ivf8_main[-1], ivf8_grid + ivf8_main),
+            (GATHER, gather_main[-1], gather_grid + gather_main)):
         kernels.append({
             **info, "launches": launches[info["name"]],
             "max_abs_err": max(c["max_abs_err"] for c in all_rows),

@@ -4,9 +4,9 @@
   vamana  fixed-degree graph + beam search (aliases "hnsw" and "diskann"),
           served by the fused int8 engine, the PQ engine or the plain
           inline engine
-  ivf     k-means buckets + bf16 scan + f32 rescore (`ops/ivf.py`); the
-          IVF-PQ engine it picks for corpora too large for that is not
-          ported yet and raises NotImplementedError (ROADMAP Queue A 10)
+  ivf     k-means buckets + bf16 scan + f32 rescore (`ops/ivf.py`), or
+          ADC-compressed buckets (`ops/ivf_pq.py`) for corpora too large
+          for that
 
 A searcher takes a *batch* of query vectors. Every searcher runs on
 `device` (default cuda; see `leann_tpu_torch.device`).
@@ -70,12 +70,13 @@ class GraphSearcher:
 
     Engine selection (override with LEANN_GRAPH_ENGINE=fused|inline|pq):
     on CUDA with kernel shapes (D % 128 == 0, R <= 128) and int8 blocks
-    within 9/16 of the free device memory (the reference's 9 GB of a
-    16 GB v5e), the fused CUDA traversal serves. When the int8 blocks do
-    not fit or D % 128 != 0 (the DEEP shape: 96-d), the PQ engine serves
-    if its records and the bf16 rescore corpus fit 13/16 of the free
-    memory (the reference's 13 GB): inline 8-bit ADC codes navigate,
-    the beam and visited log are rescored exactly. Otherwise (and always
+    within 9/16 of the free device memory, the fused CUDA traversal
+    serves. When the int8 blocks do not fit or D % 128 != 0 (the DEEP
+    shape: 96-d), the PQ engine serves if its records and the bf16
+    rescore corpus fit 13/16 of the free memory: inline 8-bit ADC codes
+    navigate, the beam and visited log are rescored exactly. The shares
+    are the reference's, which states them in bytes of its own device.
+    Otherwise (and always
     on CPU under "auto") the plain inline / row-gather engine serves;
     "pq" on CPU runs the PQ engine through the kernel's plain version."""
 
@@ -141,10 +142,15 @@ class GraphSearcher:
 class IvfSearcher:
     """Partitioned matmul search (`ops/ivf.py`).
 
-    Engine selection (override with LEANN_IVF_ENGINE=pq): the reference
-    moves to ADC-compressed buckets (IVF-PQ) when the bf16 tables and the
-    f32 rescore corpus (6 bytes per element) pass 11 GB of a 16 GB v5e;
-    here that is 11/16 of the free device memory, and only on CUDA."""
+    Engine selection (override with LEANN_IVF_ENGINE=pq): when the bf16
+    tables and the f32 rescore corpus (6 bytes per element) pass 11/16 of
+    the free device memory, ADC-compressed buckets (`IvfPqEngine`) serve
+    instead, with the most precise rescore corpus that fits beside the
+    codes: f32 within 4/16 of the free memory, bf16 within 8/16, else
+    int8. The shares are the reference's, which states them in bytes of
+    its own device (11e9, 4e9, 8e9); on the CPU, where "auto" never picks
+    the PQ engine, the knob keeps the reference's byte constants so that
+    both packages choose the same rescore."""
 
     def __init__(self, vectors: np.ndarray, ivf, metric: str = "ip",
                  default_nprobe: Optional[int] = None,
@@ -162,12 +168,24 @@ class IvfSearcher:
             choice == "auto" and m and kernels_available(dev)
             and n * d * 6 > free_device_bytes(dev) * (11 / 16))
         if use_pq:
-            raise _not_ported("the IVF-PQ engine (ops/ivf_pq.py)",
-                              "Queue A 10, IVF-PQ")
-        from leann_tpu_torch.ops.ivf import IvfEngine
+            from leann_tpu_torch.ops.ivf_pq import IvfPqEngine
 
-        self.engine = IvfEngine(vectors, metric=metric, centers=ivf.centers,
-                                assign=ivf.assign, device=dev)
+            if dev.type == "cuda":
+                free = free_device_bytes(dev)
+                f32_max, bf16_max = free * (4 / 16), free * (8 / 16)
+            else:
+                f32_max, bf16_max = 4e9, 8e9
+            rescore = ("f32" if n * d * 4 < f32_max
+                       else "bf16" if n * d * 2 < bf16_max else "int8")
+            self.engine = IvfPqEngine(
+                vectors, metric=metric, m=m, rescore=rescore,
+                centers=ivf.centers, assign=ivf.assign, device=dev)
+        else:
+            from leann_tpu_torch.ops.ivf import IvfEngine
+
+            self.engine = IvfEngine(vectors, metric=metric,
+                                    centers=ivf.centers, assign=ivf.assign,
+                                    device=dev)
 
     def __len__(self) -> int:
         return self.engine.n

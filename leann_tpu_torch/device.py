@@ -35,7 +35,7 @@ def kernels_available(device: DeviceLike = None) -> bool:
 
 
 def free_device_bytes(device: torch.device) -> int:
-    """Free memory on a CUDA device (engine sizing; the reference's
-    thresholds were written for a 16 GB TPU v5e)."""
+    """Free memory on a CUDA device (engine sizing: the engine choices
+    take shares of it)."""
     free, _total = torch.cuda.mem_get_info(device)
     return int(free)

@@ -1,6 +1,7 @@
-"""Embedding providers. This slice carries only the hermetic fake
-embedder; the HTTP and local-encoder providers come with later slices."""
+"""Embedding providers: the hermetic fake embedder and the local BERT
+encoder. The HTTP providers come with the serving surface."""
 
 from leann_tpu_torch.embed.fake import FakeEmbedding
+from leann_tpu_torch.embed.local import LocalEmbedding
 
-__all__ = ["FakeEmbedding"]
+__all__ = ["FakeEmbedding", "LocalEmbedding"]

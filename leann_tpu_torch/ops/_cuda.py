@@ -47,6 +47,10 @@ SIGNATURES = {
     "ivf8_scan": {
         "leann_ivf8_bucket_scores": ([_PTR] * 8 + [_I32] * 8 + [_PTR], _I32),
     },
+    "gather_score": {
+        "leann_gather_score": (
+            [_PTR] * 4 + [ctypes.c_longlong] + [_I32] * 5 + [_PTR], _I32),
+    },
 }
 
 

@@ -367,8 +367,7 @@ class BeamSearchEngine:
 
     # Inline-structure budgets. On CPU the reference's byte counts apply
     # unchanged (so the same inputs pick the same layout); on CUDA they
-    # scale with the free device memory (the reference's 2 GB and 6.8 GB
-    # were sized for a 16 GB TPU v5e).
+    # are the same shares (2/16 and 6.8/16) of the free device memory.
     INLINE_BUDGET_BYTES = int(6.8e9)
     BF16_BUDGET_BYTES = int(2e9)
 

@@ -42,14 +42,18 @@ def _query_chunk(cap: int, d: int) -> int:
     return max(1, _PLAIN_CHUNK // max(1, cap * d))
 
 
-def _lanes(table: torch.Tensor, elem_bytes: int) -> Tuple[int, int]:
-    """(W, G) of a kernel launch: W elements per lane load (16 bytes when
-    the rows allow it, else 1) and G lanes per row, the largest power of
-    two <= min(32, D / W)."""
+def _lanes(table: torch.Tensor, elem_bytes: int,
+           loads: Tuple[int, ...] = (16,)) -> Tuple[int, int]:
+    """(W, G) of a kernel launch: W elements per lane load (the first
+    width of `loads`, in bytes, that the rows' length and alignment
+    allow, else 1 element) and G lanes per row, the largest power of two
+    <= min(32, D / W)."""
     d = table.shape[-1]
-    w = 16 // elem_bytes
-    if (d * elem_bytes) % 16 or table.data_ptr() % 16:
-        w = 1
+    w = 1
+    for nbytes in loads:
+        if (d * elem_bytes) % nbytes == 0 and table.data_ptr() % nbytes == 0:
+            w = nbytes // elem_bytes
+            break
     g = 1
     while g * 2 <= min(32, d // w):
         g *= 2

@@ -86,6 +86,29 @@ def kmeans(
 # ---------------------------------------------------------------- packing
 
 
+def bucket_rows(assign: np.ndarray, k: int, n: int, cap: Optional[int]):
+    """(cap, [(cluster, row ids)]) of the padded bucket layout that every
+    IVF engine packs: cap defaults to 1.3 x the mean occupancy (at least
+    8), a cluster's rows keep their corpus order, rows beyond cap spill
+    into further buckets of the same cluster, and an empty cluster keeps
+    one empty bucket."""
+    counts = np.bincount(assign, minlength=k)
+    if cap is None:
+        cap = max(8, int(np.ceil(1.3 * n / k)))
+    order = np.argsort(assign, kind="stable")
+    starts = np.zeros(k + 1, dtype=np.int64)
+    np.cumsum(counts, out=starts[1:])
+    rows = []
+    for c in range(k):
+        ids = order[starts[c]:starts[c + 1]]
+        for off in range(0, max(len(ids), 1), cap):
+            part = ids[off : off + cap]
+            if len(part) == 0 and off > 0:
+                break
+            rows.append((c, part))
+    return cap, rows
+
+
 def pack_buckets(
     vectors: np.ndarray,
     assign: np.ndarray,
@@ -96,28 +119,12 @@ def pack_buckets(
     bucket_vecs [K', cap, D]). K' >= K because overflow rows become
     additional buckets sharing the parent centroid."""
     n, d = vectors.shape
-    k = centers.shape[0]
-    counts = np.bincount(assign, minlength=k)
-    if cap is None:
-        cap = max(8, int(np.ceil(1.3 * n / k)))
-
-    bucket_rows = []  # list of (centroid_idx, [ids])
-    order = np.argsort(assign, kind="stable")
-    starts = np.zeros(k + 1, dtype=np.int64)
-    np.cumsum(counts, out=starts[1:])
-    for c in range(k):
-        ids = order[starts[c]:starts[c + 1]]
-        for off in range(0, max(len(ids), 1), cap):
-            part = ids[off : off + cap]
-            if len(part) == 0 and off > 0:
-                break
-            bucket_rows.append((c, part))
-
-    kp = len(bucket_rows)
+    cap, bucket_rows_ = bucket_rows(assign, centers.shape[0], n, cap)
+    kp = len(bucket_rows_)
     bucket_ids = np.full((kp, cap), n, dtype=np.int32)   # sentinel = n
     bucket_cent = np.zeros((kp, d), dtype=np.float32)
     bucket_vecs = np.zeros((kp, cap, d), dtype=np.float32)
-    for row, (c, ids) in enumerate(bucket_rows):
+    for row, (c, ids) in enumerate(bucket_rows_):
         bucket_ids[row, : len(ids)] = ids
         bucket_cent[row] = centers[c]
         if len(ids):

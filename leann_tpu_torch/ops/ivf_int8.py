@@ -27,7 +27,8 @@ import torch
 from leann_tpu_torch.device import DeviceLike, resolve_device
 from leann_tpu_torch.ops.distance import NEG_INF, pairwise_scores, topk_stable
 from leann_tpu_torch.ops.ivf import (
-    calibrate_nprobe_ladder, device_queries, kmeans, search_sizes,
+    bucket_rows, calibrate_nprobe_ladder, device_queries, kmeans,
+    search_sizes,
 )
 
 
@@ -43,21 +44,7 @@ def pack_int8_buckets(
     (same policy as ops/ivf.pack_buckets); empty slots: id sentinel n,
     zero payload/scale/nsq."""
     n, d = vectors.shape
-    k = centers.shape[0]
-    counts = np.bincount(assign, minlength=k)
-    if cap is None:
-        cap = max(8, int(np.ceil(1.3 * n / k)))
-    order = np.argsort(assign, kind="stable")
-    starts = np.zeros(k + 1, dtype=np.int64)
-    np.cumsum(counts, out=starts[1:])
-    rows = []
-    for c in range(k):
-        ids = order[starts[c]:starts[c + 1]]
-        for off in range(0, max(len(ids), 1), cap):
-            part = ids[off:off + cap]
-            if len(part) == 0 and off > 0:
-                break
-            rows.append((c, part))
+    cap, rows = bucket_rows(assign, centers.shape[0], n, cap)
     kp = len(rows)
     bucket_ids = np.full((kp, cap), n, dtype=np.int32)
     bucket_cent = np.zeros((kp, d), dtype=np.float32)

@@ -339,9 +339,10 @@ def _use_fused_engine(dev, n, d, r, expansions, n_order) -> bool:
     """LEANN_BUILD_ENGINE=auto|fused|fused-interpret|<other>. auto picks
     the fused traversal on CUDA when the kernel takes the shapes (D % 128
     == 0, R <= 128, E <= 2), the int8 blocks fit, and the insertion is
-    bulk (>= 16384 points: packing costs ~N). The reference's 9 GB /
-    14.5 GB thresholds were for a 16 GB TPU v5e; here they are the same
-    shares of the free device memory. `fused-interpret` (the reference's
+    bulk (>= 16384 points: packing costs ~N). The thresholds are shares
+    of the free device memory (9/16 for the blocks, 14.5/16 for the
+    peak), the shares the reference takes of its own device.
+    `fused-interpret` (the reference's
     hermetic test hook) selects the fused engine too; on CPU tensors it
     runs the kernel's plain version."""
     choice = os.environ.get("LEANN_BUILD_ENGINE", "auto")

@@ -8,7 +8,9 @@ Tolerances: the traversal kernels (B1, B3) exactly: the plain versions
 sum in the kernels' order, so ids, scores and visited logs are equal.
 The bucket kernels (B2, B4): -inf positions equal exactly, finite scores
 within 1e-5 x |q| x (largest row norm) (l2: twice that), since their
-plain versions add the same exact products in another order."""
+plain versions add the same exact products in another order. The row
+gather (B5): within 1e-5 x |q| x (largest row norm), for the same
+reason."""
 
 import numpy as np
 import pytest
@@ -16,6 +18,7 @@ import torch
 
 from leann_tpu_torch.ops import bucket_kernels as tbk
 from leann_tpu_torch.ops import fused_beam as tf
+from leann_tpu_torch.ops import gather_score as tgs
 from leann_tpu_torch.ops import pq_beam as tp
 from leann_tpu_torch.ops.vamana import build_vamana
 
@@ -316,3 +319,83 @@ def test_ivf_engines_on_cuda_match_cpu(dev, monkeypatch):
         assert overlap >= 0.99
         same = gi == ci
         np.testing.assert_allclose(gs[same], cs[same], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("n,b,d,r", [
+    (5000, 17, 96, 48), (5000, 16, 128, 128), (3000, 9, 64, 7),
+    (2000, 5, 50, 200), (1000, 1, 130, 3), (4000, 33, 100, 48)])
+def test_gather_score_kernel_matches_plain(dev, n, b, d, r):
+    """B5 on D with 16-byte loads (96, 128, 64), 4-byte loads (100) and
+    single bytes (50, 130), R of 7 to 200, odd batches, duplicate ids and
+    the rows 0 and N-1."""
+    g = torch.Generator().manual_seed(n + d + r)
+    corpus = torch.randint(-128, 128, (n, d), generator=g, dtype=torch.int8)
+    ids = torch.randint(0, n, (b, r), generator=g, dtype=torch.int32)
+    ids[:, 0], ids[:, 1] = n - 1, 0
+    ids[b // 2, :] = 7
+    q = torch.randn((b, d), generator=g)
+    corpus, ids, q = corpus.to(dev), ids.to(dev), q.to(dev)
+    before = tgs.gather_score.launches
+    got = tgs.gather_score(corpus, ids, q)
+    torch.cuda.synchronize()
+    assert tgs.gather_score.launches == before + 1
+    ref = tgs.gather_score_plain(corpus, ids, q)
+    tol = 1e-5 * float(q.norm(dim=1).max()
+                       * corpus[ids.long()].float().norm(dim=2).max())
+    torch.testing.assert_close(got, ref, rtol=0, atol=tol)
+    assert float(got[b // 2].max() - got[b // 2].min()) == 0.0
+    # int64 ids, and a corpus view that is only 4-byte aligned
+    torch.testing.assert_close(
+        tgs.gather_score(corpus, ids.long(), q), got, rtol=0, atol=0)
+    if d % 16 == 0:
+        shifted = torch.empty(n * d + 4, dtype=torch.int8, device=dev)[4:]
+        shifted = shifted.view(n, d).copy_(corpus)
+        torch.testing.assert_close(
+            tgs.gather_score(shifted, ids, q), ref, rtol=0, atol=tol)
+
+
+def test_ivf_pq_engine_on_cuda_matches_cpu(dev):
+    """IvfPqEngine on the card against the same tables on the CPU: no
+    kernel launches on this path, the ids agree."""
+    from leann_tpu_torch.ops import ivf_pq
+
+    rng = np.random.default_rng(9)
+    c = rng.standard_normal((40, 96)).astype(np.float32) * 4
+    x = (c[rng.integers(0, 40, 6000)]
+         + rng.standard_normal((6000, 96)).astype(np.float32))
+    q = x[rng.integers(0, 6000, 33)] + np.float32(0.05)
+    counts = [w.launches for w in (tf.fused_beam_search, tp.pq_beam_search,
+                                   tbk.ivf_bucket_dots, tbk.ivf8_bucket_scores,
+                                   tgs.gather_score)]
+    gpu = ivf_pq.IvfPqEngine(x, n_clusters=64, metric="l2", m=16, device=dev)
+    host = {k: (v.cpu().numpy() if torch.is_tensor(v) else v)
+            for k, v in vars(gpu).items()}
+    cpu = ivf_pq.state_from_reference(
+        dict(host, metric="l2", corpus=gpu.corpus.cpu().numpy()),
+        device="cpu")
+    gi, gs = gpu.search(q, k=10, nprobe=8)
+    ci, cs = cpu.search(q, k=10, nprobe=8)
+    assert counts == [w.launches for w in (
+        tf.fused_beam_search, tp.pq_beam_search, tbk.ivf_bucket_dots,
+        tbk.ivf8_bucket_scores, tgs.gather_score)]
+    overlap = np.mean([len(set(a.tolist()) & set(b.tolist())) / 10
+                       for a, b in zip(gi, ci)])
+    assert overlap >= 0.99
+    same = gi == ci
+    np.testing.assert_allclose(gs[same], cs[same], rtol=1e-5, atol=1e-4)
+
+
+def test_bert_forward_on_cuda_matches_cpu(dev):
+    """The encoder on the card against the CPU: float32 within 1e-5, the
+    bf16 products (float32 result) within 2e-3 and cosine >= 0.999."""
+    from leann_tpu_torch.models import bert
+
+    texts = [f"passage {i} " + "w " * (i % 9) for i in range(20)]
+    for dtype, atol in (("float32", 1e-5), ("bfloat16", 2e-3)):
+        gpu = bert.BertEncoder(config=bert.BertConfig.tiny(),
+                               compute_dtype=dtype, device=dev)
+        cpu = bert.BertEncoder(config=bert.BertConfig.tiny(),
+                               compute_dtype=dtype, device="cpu")
+        a, b = gpu.embed(texts, batch_size=8), cpu.embed(texts, batch_size=8)
+        np.testing.assert_allclose(a, b, rtol=0, atol=atol)
+        assert ((a * b).sum(1) > 0.999).all()

@@ -156,6 +156,29 @@ def test_port_imports_no_jax_and_no_reference(tmp_path):
         b.build()
         res = IndexSearcher.load(base + "2", device="cpu").search(vecs[:2])
         assert res[0][0].id == "d0", res[0][0].id
+        import torch
+        from leann_tpu_torch.embed import LocalEmbedding
+        from leann_tpu_torch.entry import entry
+        from leann_tpu_torch.evals import gather_roofline
+        from leann_tpu_torch.models import bert, fixture
+        from leann_tpu_torch.ops.gather_score import gather_score
+        from leann_tpu_torch.ops.ivf_pq import IvfPqEngine
+        gather_score(torch.zeros((4, 8), dtype=torch.int8),
+                     torch.zeros((2, 3), dtype=torch.int32),
+                     torch.zeros((2, 8)))
+        gather_roofline.run(n=64, b=2, r=2, m_scan=1, reps=1, d=16,
+                            device="cpu")
+        IvfPqEngine(vecs, n_clusters=8, m=8, ksub=16, device="cpu").search(
+            vecs[:2], k=3, nprobe=4)
+        os.environ["LEANN_IVF_ENGINE"] = "pq"
+        res = IndexSearcher.load(base + "2", device="cpu").search(vecs[:2])
+        assert res[0][0].id == "d0", res[0][0].id
+        assert LocalEmbedding(device="cpu").embed(["a b"]).shape == (1, 64)
+        fixture.write_bert_fixture(base + ".ckpt")
+        bert.load_hf_params(base + ".ckpt", bert.BertConfig.from_hf_config(
+            base + ".ckpt/config.json"))
+        fn, args = entry(device="cpu")
+        assert fn(*args)[0].shape == (16, 10)
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m.startswith("jaxlib") or m == "leann_tpu"
@@ -188,8 +211,9 @@ def test_cuda_requested_without_cuda_raises(monkeypatch, tmp_path):
 
 
 def test_unported_backends_raise(tmp_path, monkeypatch):
-    """Sharded search and the IVF-PQ engine raise, naming their ROADMAP
-    item; the ivf backend itself builds and loads."""
+    """Sharded search raises, naming its ROADMAP item; the ivf backend
+    builds and loads, and under LEANN_IVF_ENGINE=pq it serves the IVF-PQ
+    engine."""
     base = str(tmp_path / "i" / "documents.leann")
     _build(IndexBuilder, base, _texts(50), "flat", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -198,8 +222,8 @@ def test_unported_backends_raise(tmp_path, monkeypatch):
     _build(IndexBuilder, ivf, _texts(50), "ivf", device="cpu")
     assert IndexSearcher.load(ivf, device="cpu").backend.engine.n == 50
     monkeypatch.setenv("LEANN_IVF_ENGINE", "pq")
-    with pytest.raises(NotImplementedError, match="ROADMAP: Queue A 10"):
-        IndexSearcher.load(ivf, device="cpu")
+    engine = IndexSearcher.load(ivf, device="cpu").backend.engine
+    assert type(engine).__name__ == "IvfPqEngine" and engine.n == 50
 
 
 def test_bm25_sidecar_matches_reference(tmp_path):
