@@ -15,8 +15,12 @@ on stdout:
   env      torch / CUDA / nvcc versions, the card's name and power limit
   build    nvcc build of the kernel libraries (seconds)
   kernels  fused_beam_search (CUDA) vs fused_beam_search_plain on the
-           card: N=4096, D=128, R=48, L=64, E in {1, 2}, l2 and ip, an
-           odd batch with `exclude`, track_visited in {0, 160};
+           card, exactly (ids, scores, visited log, and the counts of
+           hops merged by the bitonic network because scores tied):
+           N=4096, D=128, R=48, L=64, E in {1, 2}, l2 and ip, an odd
+           batch with `exclude`, track_visited in {0, 160}; each row
+           with the slow-merge share, CTAs per SM and the time of the
+           earlier design (`ms_pr4`);
            pq_beam_search vs pq_beam_search_plain: N=4096, R=48, L=64,
            B=1023 with `exclude`, ksub 16 and 256, l2 and ip, E 1 and
            2, visited log 0 and 256, m=16 at D=96, m=64 at D=768, and a
@@ -53,7 +57,9 @@ on stdout:
            `search_pallas` (kernel ivf_bucket_dots), device QPS of both
            at batch 2048 by CUDA events, a profile of one window each
   ivf8     BASELINE config 2 at its full scale: the same mixture at
-           10M x 96 l2, IvfInt8Engine(n_clusters=6324), nprobe 8, with
+           10M x 96 l2, k-means (two runs of its first iteration on a 1M
+           slice must give the same bits), IvfInt8Engine(n_clusters=6324),
+           nprobe 8, with
            LEANN_IVF8_PALLAS=1 (kernel ivf8_bucket_scores) and without
            (torch scan): recall@10 on 1024 queries, device QPS at batches
            512 and 2048, calibrate_nprobe(0.95), a profile of each path
@@ -343,31 +349,55 @@ def kernel_bound(kw):
             "bytes" if t_bytes >= t_ops else "operations", expansions)
 
 
+# B1's device ms per case in its earlier design (a bitonic merge on every
+# hop, admission by scans), one NVIDIA H100 80GB HBM3 at 700 W (PERF.md
+# section 6): the main-path cases from that design's proof run, the
+# N=4096 grid from its source timed beside the current kernel
+B1_MS_BEFORE = {
+    "l2/E2/tv160": 2.367, "l2/E1/tv0": 3.004, "ip/E2/tv0": 2.424,
+    "ip/E1/tv160": 3.046, "l2/E2/tv0": 2.358, "ip/E2/tv160": 2.424,
+    "rag build": 2.014, "rag search L64": 1.343, "rag search L1024": 51.45,
+    "sift build": 10.673, "sift search": 5.365,
+}
+
+
 def check_case(torch, label, kw, reps):
     """One kernel-vs-plain comparison on the card, with the kernel's and
-    the plain version's device ms and the bound. Raises on disagreement:
-    beam ids equal on >= 99% of positions, scores within atol 1e-3 where
-    the ids agree, visited log equal on >= 99%."""
+    the plain version's device ms (the plain version counting its slow
+    merges), the bound and the earlier design's time. Raises unless ids, scores and the visited log are equal exactly
+    and the kernel's slow merges (hops merged by the bitonic network
+    because scores tied) and active hops equal the plain version's
+    counts."""
     from leann_tpu_torch.ops import fused_beam as fb
 
-    got = fb.fused_beam_search(**kw)
-    plain_ms, ref = cuda_ms(lambda: fb.fused_beam_search_plain(**kw), 1)
+    got = fb.fused_beam_search(**kw, merge_stats=True)
+    plain_ms, ref = cuda_ms(
+        lambda: fb.fused_beam_search_plain(**kw, merge_stats=True), 1)
+    equal = len(got) == len(ref) and all(
+        bool(torch.equal(a, r)) for a, r in zip(got, ref))
     same = got[0] == ref[0]
-    ids_eq = float(same.float().mean())
     both = same & torch.isfinite(ref[1])
     err = float((got[1] - ref[1]).abs()[both].max()) if bool(both.any()) else 0.0
-    vlog_eq = float((got[2] == ref[2]).float().mean()) if len(got) > 2 else 1.0
+    vlog_eq = (float((got[2] == ref[2]).float().mean())
+               if kw["track_visited"] else 1.0)
+    slow, hops = (int(t.sum()) for t in got[-2:])
     ms, _ = cuda_ms(lambda: fb.fused_beam_search(**kw), reps)
     bound_ms, bound_by, expansions = kernel_bound(kw)
     b, d = kw["queries"].shape
     row = {"case": label, "b": b, "d": d, "r": kw["r"],
            "l": kw["beam_width"], "e": kw["expansions"],
            "metric": kw["metric"], "track_visited": kw["track_visited"],
-           "n": kw["blocks_i8"].shape[0] - 1, "ids_equal": ids_eq,
+           "n": kw["blocks_i8"].shape[0] - 1,
+           "ids_equal": float(same.float().mean()), "all_equal": equal,
            "max_abs_err": err, "vlog_equal": vlog_eq, "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-           "expansions": expansions}
-    if ids_eq < 0.99 or vlog_eq < 0.99 or err > 1e-3:
+           "ms_pr4": B1_MS_BEFORE[label], "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "expansions": expansions, "hops": hops, "slow_merges": slow,
+           "slow_merge_share": slow / max(1, hops),
+           "ctas_per_sm": fb.ctas_per_sm(
+               d, kw["r"], kw["beam_width"], kw["expansions"],
+               kw.get("ring_size", 1024), kw["track_visited"])}
+    if not equal:
         raise AssertionError(f"fused_beam_search disagrees with its plain "
                              f"version: {json.dumps(row)}")
     return row
@@ -1097,6 +1127,13 @@ def phase_ivf8(torch, dev, n, counter):
     t0 = time.perf_counter()
     centers, assign = kmeans(corpus, IVF8_CLUSTERS, metric="l2", device=dev)
     kmeans_s = time.perf_counter() - t0
+    # k-means sums in a fixed order: two runs of its first iteration on a
+    # 1M slice must give the same bits
+    runs = [kmeans(corpus[:1_000_000], IVF8_CLUSTERS, iters=1, metric="l2",
+                   device=dev) for _ in range(2)]
+    kmeans_repeat_equal = all(
+        a.tobytes() == b.tobytes() for a, b in zip(*runs))
+    del runs
     t0 = time.perf_counter()
     eng = IvfInt8Engine(corpus, metric="l2", centers=centers, assign=assign,
                         device=dev)
@@ -1136,7 +1173,8 @@ def phase_ivf8(torch, dev, n, counter):
     emit({"phase": "ivf8", "n": n, "d": d, "n_clusters": IVF8_CLUSTERS,
           "buckets": eng.bucket_cent.shape[0], "cap": eng.cap,
           "payload_gb": eng.payload.numel() / 1e9, "nprobe": NPROBE,
-          "gen_s": gen_s, "kmeans_s": kmeans_s, "pack_s": pack_s,
+          "gen_s": gen_s, "kmeans_s": kmeans_s,
+          "kmeans_repeat_equal": kmeans_repeat_equal, "pack_s": pack_s,
           "queries": nq, "recall10_kernel": rec["kernel"],
           "recall10_torch": rec["torch"], "launches_kernel": launches["kernel"],
           "launches_torch": launches["torch"],
@@ -1149,6 +1187,8 @@ def phase_ivf8(torch, dev, n, counter):
     if launches["torch"] or launches["kernel"] <= 0:
         raise AssertionError("ivf8: LEANN_IVF8_PALLAS=1 must launch "
                              "ivf8_bucket_scores and the torch scan must not")
+    if not kmeans_repeat_equal:
+        raise AssertionError("ivf8: two k-means runs gave different bits")
     data = {"corpus": corpus, "queries": queries, "oracle": oracle,
             "centers": centers, "assign": assign, "recall10": rec["kernel"]}
     return eng, batches, data

@@ -34,8 +34,9 @@ _PTR, _I32 = ctypes.c_void_p, ctypes.c_int
 # also exports leann_cuda_error_string
 SIGNATURES = {
     "fused_beam": {
-        "leann_fused_beam_search": ([_PTR] * 10 + [_I32] * 13 + [_PTR], _I32),
-        "leann_fused_beam_smem_bytes": ([_I32] * 5, ctypes.c_size_t),
+        "leann_fused_beam_search": ([_PTR] * 11 + [_I32] * 13 + [_PTR], _I32),
+        "leann_fused_beam_smem_bytes": ([_I32] * 6, ctypes.c_size_t),
+        "leann_fused_beam_ctas_per_sm": ([_I32] * 6, _I32),
     },
     "pq_beam": {
         "leann_pq_beam_search": ([_PTR] * 10 + [_I32] * 15 + [_PTR], _I32),

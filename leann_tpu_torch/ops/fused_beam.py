@@ -248,6 +248,26 @@ def _group_any(x, qb):
     return xp.repeat_interleave(qb)[:b]
 
 
+def _needs_network(a_sc, a_id, a_exp, cand_sc, valid, n_sentinel):
+    """[B] bool: the hops whose merge the CUDA kernel hands to the
+    bitonic network. Its rank merge needs a beam whose live entries come
+    first in strictly descending order, a tail of (-inf, sentinel,
+    unexpanded) entries, admitted candidates with scores above -inf, and
+    no two equal scores among the live entries of beam and candidates
+    (-0.0 equals +0.0). Then the descending order is unique and any
+    correct merge gives the network's output; otherwise the network's own
+    permutation of the ties decides."""
+    live = a_sc != NEG_INF
+    unsorted = (live[:, 1:] & ~(a_sc[:, :-1] > a_sc[:, 1:])).any(1)
+    bad_tail = (~live & ((a_id != n_sentinel) | a_exp)).any(1)
+    bad_cand = (valid & ~(cand_sc > NEG_INF)).any(1)
+    vals = torch.cat([torch.where(live, a_sc, NEG_INF),
+                      torch.where(valid, cand_sc, NEG_INF)], 1)
+    srt = torch.sort(vals, dim=1, descending=True).values
+    dup = ((srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] != NEG_INF)).any(1)
+    return unsorted | bad_tail | bad_cand | dup
+
+
 def _sizes(l, e, ring_size, track_visited):
     c = e * LANES
     p2 = 1 << int(np.ceil(np.log2(l + c)))
@@ -259,15 +279,18 @@ def _sizes(l, e, ring_size, track_visited):
 def fused_beam_search_plain(
     queries, blocks_i8, meta_i32, seed_ids, seed_scores, exclude, r,
     beam_width, max_iters, metric, expansions=2, qb=16, ring_size=1024,
-    track_visited=0,
+    track_visited=0, merge_stats=False,
 ):
     """Plain PyTorch version of the fused kernel, batched over queries,
     hop by hop as the Pallas kernel runs them. Queries run in groups of
     qb (the Pallas program): a query with no unexpanded live entry keeps
     taking merges while any query of its group is active. Its candidates
     are all (-inf, sentinel) and its ring shifts in -1s, but the bitonic
-    network permutes entries of equal score. Same arguments and outputs
-    as `fused_beam_search`."""
+    network permutes entries of equal score. Every merge is the bitonic
+    network; with `merge_stats` it also counts, per query, the active
+    hops and those that the CUDA kernel merges with the network
+    (`_needs_network`). Same arguments and outputs as
+    `fused_beam_search`."""
     del r
     b, _ = queries.shape
     dev = queries.device
@@ -291,6 +314,8 @@ def fused_beam_search_plain(
     lane = torch.arange(LANES, device=dev)
     dup_lower = lane[None, :] < lane[:, None]                   # [i, j]: j < i
     pad = p2 - l - c
+    slow = torch.zeros((b,), dtype=torch.int32, device=dev)
+    hops = torch.zeros((b,), dtype=torch.int32, device=dev)
 
     for it in range(max_iters):
         pos, active = _first_k_unexpanded(st_sc, st_exp, e)     # [B, E]
@@ -324,6 +349,13 @@ def fused_beam_search_plain(
         valid &= ~_member(nbr, st_id[:, None, :].expand(-1, e, -1))
         valid &= ~_member(nbr, ring)
 
+        if merge_stats:
+            own = active.any(1)
+            hops += own.to(torch.int32)
+            slow += (own & _needs_network(
+                st_sc[:, :l], st_id[:, :l], st_exp[:, :l],
+                cand_sc.reshape(b, c), valid.reshape(b, c),
+                n_sentinel)).to(torch.int32)
         cand_sc = torch.where(valid, cand_sc, NEG_INF)
         cand_id = torch.where(valid, nbr, n_sentinel)
         new_ring = torch.cat([torch.where(valid, nbr, -1),
@@ -348,6 +380,8 @@ def fused_beam_search_plain(
     out = (st_id[:, :l].to(torch.int32), st_sc[:, :l].contiguous())
     if vt:
         out = out + (vlog.to(torch.int32),)
+    if merge_stats:
+        out = out + (slow, hops)
     return out
 
 
@@ -399,11 +433,15 @@ def fused_beam_search(
     qb: int = 16,
     ring_size: int = 1024,
     track_visited: int = 0,
+    merge_stats: bool = False,
 ) -> Tuple[torch.Tensor, ...]:
     """Returns (beam_ids [B, L] int32 desc, beam_scores [B, L] f32),
     int8-scored; with track_visited > 0 also vlog_ids [B, VT] int32
     (VT = track_visited rounded up to a multiple of 128): the first
-    VT/E hops' expanded node ids, sentinel-padded.
+    VT/E hops' expanded node ids, sentinel-padded; with merge_stats also
+    (slow_merges [B] int32, hops [B] int32): each query's active hops and
+    how many of them the kernel merged with the bitonic network because
+    scores tied (the others by rank, with the same result).
 
     Queries form groups of qb consecutive rows, as the reference's
     programs do (B need not be a multiple of qb: the last group is
@@ -416,7 +454,7 @@ def fused_beam_search(
         return fused_beam_search_plain(
             queries, blocks_i8, meta_i32, seed_ids, seed_scores, exclude,
             r, beam_width, max_iters, metric, expansions, qb, ring_size,
-            track_visited)
+            track_visited, merge_stats)
     if queries.device.type != "cuda":
         raise ValueError(f"unsupported device {queries.device}")
 
@@ -427,7 +465,7 @@ def fused_beam_search(
     e, l = expansions, beam_width
     s = seed_ids.shape[1]
     _, p2, v, vt = _sizes(l, e, ring_size, track_visited)
-    smem = lib.leann_fused_beam_smem_bytes(d, r, e, p2, (v + 3) & ~3)
+    smem = lib.leann_fused_beam_smem_bytes(d, r, e, l, p2, (v + 3) & ~3)
     if smem > 232448:
         raise ValueError(f"fused kernel needs {smem} B of shared memory "
                          "per query (> 227 KB); lower R, D or ring_size")
@@ -438,19 +476,38 @@ def fused_beam_search(
     out_sc = torch.empty((b, l), dtype=torch.float32, device=dev)
     vlog = torch.empty((b, max(vt, 1)), dtype=torch.int32, device=dev)
     hops = torch.empty((b,), dtype=torch.int32, device=dev)
+    slow = torch.empty((b,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.leann_fused_beam_search(
             *(t.data_ptr() for t in ts), out_ids.data_ptr(),
             out_sc.data_ptr(), vlog.data_ptr() if vt else None,
-            hops.data_ptr(), b, d, r, s, l, e, p2, v, vt, max_iters,
-            int(metric == "l2"), blocks_i8.shape[0] - 1, qb, stream)
+            hops.data_ptr(), slow.data_ptr(), b, d, r, s, l, e, p2, v, vt,
+            max_iters, int(metric == "l2"), blocks_i8.shape[0] - 1, qb,
+            stream)
     _cuda.check(lib, err, "fused_beam_search")
     fused_beam_search.launches += 1
-    return (out_ids, out_sc, vlog) if vt else (out_ids, out_sc)
+    out = (out_ids, out_sc, vlog) if vt else (out_ids, out_sc)
+    return out + (slow, hops) if merge_stats else out
 
 
 fused_beam_search.launches = 0
+
+
+def ctas_per_sm(d: int, r: int, beam_width: int, expansions: int = 2,
+                ring_size: int = 1024, track_visited: int = 0) -> int:
+    """CTAs of the CUDA traversal kernel that fit on one SM at these
+    sizes (its shared memory, registers and 256 threads), as the CUDA
+    occupancy calculator gives them. Needs the card."""
+    from leann_tpu_torch.ops import _cuda
+
+    lib = _cuda.load("fused_beam")
+    _, p2, v, _ = _sizes(beam_width, expansions, ring_size, track_visited)
+    n = lib.leann_fused_beam_ctas_per_sm(d, r, expansions, beam_width, p2,
+                                         (v + 3) & ~3)
+    if n < 0:
+        _cuda.check(lib, -n, "fused_beam ctas_per_sm")
+    return n
 
 
 # ------------------------------------------------------------- host engine

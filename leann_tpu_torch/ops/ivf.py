@@ -23,6 +23,7 @@ centroid scoring probes them (a duplicated centroid scores identically).
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import numpy as np
@@ -45,12 +46,32 @@ def _assign_chunked(vectors, centers, metric, chunk) -> torch.Tensor:
         for s in range(0, vectors.shape[0], chunk)])
 
 
+@contextlib.contextmanager
+def _deterministic():
+    """PyTorch's deterministic mode for the block, then the caller's mode
+    again. In it `index_add_` on CUDA sums each row's contributions in
+    index order (a sort, then a segment sum) instead of with atomics, whose
+    order changes from run to run."""
+    mode = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(mode, warn_only=warn)
+
+
 def _kmeans_update(v_dev, assign, centers_prev, k: int) -> torch.Tensor:
+    """New centers: the mean of each cluster's rows (an empty cluster
+    keeps its center), summed in a fixed order, so a seed gives the same
+    bits on every run, as the reference's `segment_sum` does."""
     d = v_dev.shape[1]
     sums = torch.zeros((k, d), dtype=torch.float32, device=v_dev.device)
-    sums.index_add_(0, assign, v_dev)
     counts = torch.zeros((k,), dtype=torch.float32, device=v_dev.device)
-    counts.index_add_(0, assign, torch.ones_like(assign, dtype=torch.float32))
+    with _deterministic():
+        sums.index_add_(0, assign, v_dev)
+        counts.index_add_(0, assign,
+                          torch.ones_like(assign, dtype=torch.float32))
     fresh = sums / counts.clamp_min(1.0)[:, None]
     return torch.where((counts > 0)[:, None], fresh, centers_prev)
 
@@ -253,7 +274,11 @@ class IvfEngine:
         rescore_factor: int = 4,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Device-out search: (ids, scores) on the device."""
-        q = device_queries(queries, self.device, self.metric_in)
+        return self._search(device_queries(queries, self.device,
+                                           self.metric_in),
+                            k, nprobe, rescore_factor)
+
+    def _search(self, q, k, nprobe, rescore_factor):
         k, nprobe, c = search_sizes(self, k, nprobe, rescore_factor)
         _, cand = ivf_search(
             q, self.bucket_cent, self.bucket_ids, self.bucket_vecs_bf16,
@@ -267,8 +292,11 @@ class IvfEngine:
         self, qs, k: int = 10, nprobe: int = 32, rescore_factor: int = 4,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """[M, B, D] device-resident query batches -> (ids, scores) each
-        [M, B, k], one batch after another (the reference's lax.scan)."""
-        outs = [self.search_device(q, k, nprobe, rescore_factor) for q in qs]
+        [M, B, k], one batch after another (the reference's lax.scan). The
+        queries go in as they are, as in the reference: a cosine engine's
+        scores then carry |q|."""
+        outs = [self._search(q.to(torch.float32), k, nprobe, rescore_factor)
+                for q in qs]
         return (torch.stack([o[0] for o in outs]),
                 torch.stack([o[1] for o in outs]))
 

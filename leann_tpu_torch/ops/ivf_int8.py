@@ -140,7 +140,11 @@ class IvfInt8Engine:
     def search_device(self, queries, k: int = 10, nprobe: int = 32,
                       rescore_factor: int = 4):
         """Device-out search: (ids, scores) on the device."""
-        q = device_queries(queries, self.device, self.metric_in)
+        return self._search(device_queries(queries, self.device,
+                                           self.metric_in),
+                            k, nprobe, rescore_factor)
+
+    def _search(self, q, k, nprobe, rescore_factor):
         k, nprobe, c = search_sizes(self, k, nprobe, rescore_factor)
         if self._use_pallas():
             pay, sc, ns, ids, cent, cap_pad, d_pad = self._pallas_tables()
@@ -156,8 +160,11 @@ class IvfInt8Engine:
     def search_many_device(self, qs, k: int = 10, nprobe: int = 32,
                            rescore_factor: int = 4):
         """[M, B, D] device-resident batches -> (ids, scores) [M, B, k],
-        one batch after another (the reference's lax.scan)."""
-        outs = [self.search_device(q, k, nprobe, rescore_factor) for q in qs]
+        one batch after another (the reference's lax.scan). The queries go
+        in as they are, as in the reference: a cosine engine's scores then
+        carry |q|."""
+        outs = [self._search(q.to(torch.float32), k, nprobe, rescore_factor)
+                for q in qs]
         return (torch.stack([o[0] for o in outs]),
                 torch.stack([o[1] for o in outs]))
 

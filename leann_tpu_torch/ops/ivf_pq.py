@@ -272,7 +272,11 @@ class IvfPqEngine:
     def search_device(self, queries, k: int = 10, nprobe: int = 32,
                       rescore_factor: int = 16):
         """Device-out search: (ids, scores) on the device."""
-        q = device_queries(queries, self.device, self.metric_in)
+        return self._search(device_queries(queries, self.device,
+                                           self.metric_in),
+                            k, nprobe, rescore_factor)
+
+    def _search(self, q, k, nprobe, rescore_factor):
         k, nprobe, c = search_sizes(self, k, nprobe, rescore_factor)
         return ivfpq_search(
             q, self.bucket_cent, self.bucket_ids, self.bucket_codes,
@@ -284,10 +288,11 @@ class IvfPqEngine:
     def search_many_device(self, qs, k: int = 10, nprobe: int = 32,
                            rescore_factor: int = 16):
         """[M, B, D] device-resident batches -> (ids, scores) [M, B, k],
-        one batch after another (the reference's lax.scan). Each batch
-        goes through `search_device`, so cosine queries are normalized
-        (the reference's scan passes them on as they are)."""
-        outs = [self.search_device(q, k, nprobe, rescore_factor) for q in qs]
+        one batch after another (the reference's lax.scan). The queries go
+        in as they are, as in the reference: a cosine engine's scores then
+        carry |q|."""
+        outs = [self._search(q.to(torch.float32), k, nprobe, rescore_factor)
+                for q in qs]
         return (torch.stack([o[0] for o in outs]),
                 torch.stack([o[1] for o in outs]))
 

@@ -6,6 +6,12 @@ a card and no JAX it runs on its own:
 
 Tolerances: the traversal kernels (B1, B3) exactly: the plain versions
 sum in the kernels' order, so ids, scores and visited logs are equal.
+B1 merges a hop by rank where the live scores are distinct and with the
+bitonic network where they tie; `merge_stats=True` returns per query the
+hops that took the network ("slow merges") and the active hops, and the
+plain version counts them alike, so the counts are held equal too. The B1
+cases of the smoke alone, on a card: `python -c "import torch,
+chip_smoke; chip_smoke.phase_kernels(torch, torch.device('cuda'))"`.
 The bucket kernels (B2, B4): -inf positions equal exactly, finite scores
 within 1e-5 x |q| x (largest row norm) (l2: twice that), since their
 plain versions add the same exact products in another order. The row
@@ -44,9 +50,42 @@ def graph(dev):
     return x, adj, medoid
 
 
+def kernel_equals_plain(kw):
+    """B1 against its plain version on the card, exactly, without and
+    with merge_stats (ids, scores, visited log, slow merges, hops).
+    Returns (slow merges, hops) per query."""
+    before = tf.fused_beam_search.launches
+    got = tf.fused_beam_search(**kw)
+    stats = tf.fused_beam_search(**kw, merge_stats=True)
+    torch.cuda.synchronize()
+    assert tf.fused_beam_search.launches == before + 2
+    ref = tf.fused_beam_search_plain(**kw, merge_stats=True)
+    assert len(got) == (3 if kw.get("track_visited") else 2)
+    assert len(stats) == len(ref) == len(got) + 2
+    for a, r in zip(got, ref):
+        assert torch.equal(a, r)
+    for a, r in zip(stats, ref):
+        assert torch.equal(a, r)
+    return stats[-2:]
+
+
+def medoid_args(st, q, medoid, adj, **kw):
+    """Kernel arguments with the medoid as the one seed (l2, f32 score)."""
+    b = q.shape[0]
+    sc = 2.0 * q @ st["corpus"][medoid] - st["sq_norms"][medoid]
+    return dict(queries=q, blocks_i8=st["blocks"], meta_i32=st["meta"],
+                seed_ids=torch.full((b, 1), medoid, dtype=torch.int32,
+                                    device=q.device),
+                seed_scores=sc[:, None].contiguous(),
+                exclude=torch.full((b,), -1, dtype=torch.int32,
+                                   device=q.device),
+                r=adj.shape[1], metric="l2", **kw)
+
+
 @pytest.mark.parametrize("metric,expansions,track", [
     ("l2", 2, 160), ("l2", 1, 0), ("ip", 2, 0), ("ip", 1, 160)])
 def test_kernel_equals_plain(dev, graph, metric, expansions, track):
+    """Four random seeds per query, all scored 0: the first merges tie."""
     x, adj, medoid = graph
     st = tf.state_from_reference(x, adj, medoid, device=dev)
     rng = np.random.default_rng(1)
@@ -57,18 +96,43 @@ def test_kernel_equals_plain(dev, graph, metric, expansions, track):
     sc = torch.zeros((b, 4), device=dev)
     exc = torch.from_numpy(
         rng.integers(-1, len(x), b).astype(np.int32)).to(dev)
-    kw = dict(r=adj.shape[1], beam_width=48, max_iters=120, metric=metric,
-              expansions=expansions, ring_size=512, track_visited=track)
-    before = tf.fused_beam_search.launches
-    got = tf.fused_beam_search(q, st["blocks"], st["meta"], seeds, sc, exc,
-                               **kw)
-    torch.cuda.synchronize()
-    assert tf.fused_beam_search.launches == before + 1
-    ref = tf.fused_beam_search_plain(q, st["blocks"], st["meta"], seeds, sc,
-                                     exc, **kw)
-    assert len(got) == len(ref) == (3 if track else 2)
-    for a, r in zip(got, ref):
-        assert torch.equal(a, r)
+    slow, hops = kernel_equals_plain(dict(
+        queries=q, blocks_i8=st["blocks"], meta_i32=st["meta"],
+        seed_ids=seeds, seed_scores=sc, exclude=exc, r=adj.shape[1],
+        beam_width=48, max_iters=120, metric=metric, expansions=expansions,
+        ring_size=512, track_visited=track))
+    assert bool((slow >= 1).all()) and bool((slow <= hops).all())
+
+
+def test_kernel_rank_merge_on_distinct_vectors(dev, graph):
+    """Gaussian vectors and the medoid as the one seed: no two live scores
+    tie, so every hop merges by rank (no slow merge)."""
+    x, adj, medoid = graph
+    st = tf.state_from_reference(x, adj, medoid, device=dev)
+    rng = np.random.default_rng(11)
+    q = torch.from_numpy(x[rng.integers(0, len(x), 64)] + np.float32(0.1)).to(dev)
+    for beam in (32, 64):
+        slow, hops = kernel_equals_plain(medoid_args(
+            st, q, medoid, adj, beam_width=beam, max_iters=150,
+            expansions=2, ring_size=1024, track_visited=160))
+        assert int(slow.sum()) == 0 and bool((hops > 0).all())
+
+
+@pytest.mark.parametrize("expansions", [1, 2])
+def test_kernel_minimum_ring(dev, graph, expansions):
+    """ring_size below the sort width, so each ring holds V = P2 ids (two
+    or four hops): over the search's hops ids fall out of the rings and
+    are admitted again, and the table must see each ring as it stands."""
+    x, adj, medoid = graph
+    st = tf.state_from_reference(x, adj, medoid, device=dev)
+    rng = np.random.default_rng(12)
+    q = torch.from_numpy(x[rng.integers(0, len(x), 64)] + np.float32(0.1)).to(dev)
+    for beam in (32, 64):
+        p2 = tf._sizes(beam, expansions, 1, 0)[1]
+        slow, hops = kernel_equals_plain(medoid_args(
+            st, q, medoid, adj, beam_width=beam, max_iters=150,
+            expansions=expansions, ring_size=1, track_visited=128))
+        assert int(hops.min()) > p2 // 128
 
 
 @pytest.fixture(scope="module")
@@ -98,11 +162,8 @@ def test_kernel_equals_plain_d768(dev, graph768, case):
     else:
         none = torch.full((b,), -1, dtype=torch.int32, device=dev)
         kw = eng.kernel_args(q, none, 64 if case == "search64" else 1024)
-    got = tf.fused_beam_search(**kw)
-    ref = tf.fused_beam_search_plain(**kw)
-    assert len(got) == len(ref) == 3
-    for a, r in zip(got, ref):
-        assert torch.equal(a, r)
+    slow, hops = kernel_equals_plain(kw)
+    assert bool((hops > 0).all()) and bool((slow <= hops).all())
 
 
 def test_engine_on_cuda_matches_cpu(dev, graph):
@@ -211,7 +272,8 @@ def test_pq_engine_on_cuda_matches_cpu(dev, graph96):
 def test_kernel_query_groups_on_duplicate_rows(dev):
     """B1 with qb=4 on a corpus whose rows appear two or three times:
     converged beams hold tied int8 scores, and the settle pass must
-    reorder them as the group's empty merges do in the plain version."""
+    reorder them as the group's empty merges do in the plain version;
+    the ties send hops to the bitonic network (slow merges > 0)."""
     rng = np.random.default_rng(6)
     base = rng.standard_normal((800, 128)).astype(np.float32)
     x = np.concatenate([base, base, base[:400]])[rng.permutation(2000)]
@@ -225,16 +287,15 @@ def test_kernel_query_groups_on_duplicate_rows(dev):
     sc = (2.0 * q @ st["corpus"][medoid] - st["sq_norms"][medoid])[:, None]
     exc = torch.full((b,), -1, dtype=torch.int32, device=dev)
     for qb in (4, 16):
-        kw = dict(r=adj.shape[1], beam_width=32, max_iters=100, metric="l2",
+        kw = dict(queries=q, blocks_i8=st["blocks"], meta_i32=st["meta"],
+                  seed_ids=seeds, seed_scores=sc.contiguous(), exclude=exc,
+                  r=adj.shape[1], beam_width=32, max_iters=100, metric="l2",
                   expansions=2, qb=qb, ring_size=256, track_visited=160)
-        got = tf.fused_beam_search(q, st["blocks"], st["meta"], seeds,
-                                   sc.contiguous(), exc, **kw)
-        ref = tf.fused_beam_search_plain(q, st["blocks"], st["meta"], seeds,
-                                         sc.contiguous(), exc, **kw)
+        ref = tf.fused_beam_search_plain(**kw)
         ties = (ref[1][:, 1:] == ref[1][:, :-1]) & torch.isfinite(ref[1][:, 1:])
         assert bool(ties.any())
-        for a, r in zip(got, ref):
-            assert torch.equal(a, r)
+        slow, hops = kernel_equals_plain(kw)
+        assert int(slow.sum()) > 0 and bool((slow <= hops).all())
 
 
 def _bucket_case(dev, k, cap, d, b, p, seed):
@@ -292,6 +353,24 @@ def test_ivf8_kernel_matches_plain(dev, metric, k, cap, d, b, p):
     tol = 1e-5 * float(q.norm(dim=1).max() * row) * (2 if metric == "l2" else 1)
     live = torch.isfinite(ref)
     torch.testing.assert_close(got[live], ref[live], rtol=0, atol=tol)
+
+
+def test_kmeans_is_deterministic_on_the_card(dev):
+    """Two k-means runs on one corpus give byte-equal centers and
+    assignment (the sums run in a fixed order), and PyTorch's
+    deterministic mode is left as it was."""
+    from leann_tpu_torch.ops.ivf import kmeans
+
+    rng = np.random.default_rng(10)
+    c = rng.standard_normal((64, 64)).astype(np.float32) * 4
+    x = c[rng.integers(0, 64, 200_000)] + rng.standard_normal(
+        (200_000, 64)).astype(np.float32)
+    was = torch.are_deterministic_algorithms_enabled()
+    a = kmeans(x, 256, iters=4, metric="l2", device=dev)
+    b = kmeans(x, 256, iters=4, metric="l2", device=dev)
+    assert a[0].tobytes() == b[0].tobytes()
+    assert a[1].tobytes() == b[1].tobytes()
+    assert torch.are_deterministic_algorithms_enabled() == was
 
 
 def test_ivf_engines_on_cuda_match_cpu(dev, monkeypatch):

@@ -110,6 +110,85 @@ def test_bitonic_desc_sorts_and_carries():
     np.testing.assert_array_equal(s_exp.numpy(), np.take_along_axis(exp, order, 1))
 
 
+def _merge_input(rng, rows, p2, l, c, n_sentinel):
+    """[rows, p2] merge inputs laid out as the kernel's: a beam of l
+    entries (a strictly descending live prefix, some expanded, then
+    (-inf, sentinel)), c candidate lanes (about a third admitted, the
+    rest (-inf, sentinel)) and the pad; live scores all distinct."""
+    sc = np.full((rows, p2), -np.inf, np.float32)
+    ids = np.full((rows, p2), n_sentinel, np.int64)
+    exp = np.zeros((rows, p2), bool)
+    for q in range(rows):
+        n_beam = int(rng.integers(1, l + 1))
+        admitted = np.flatnonzero(rng.random(c) < 0.35)
+        vals = rng.choice(1 << 20, n_beam + len(admitted), replace=False)
+        vals = (vals.astype(np.float32) - (1 << 19)) / 64
+        sc[q, :n_beam] = np.sort(vals[:n_beam])[::-1]
+        ids[q, :n_beam] = rng.choice(n_sentinel, n_beam, replace=False)
+        exp[q, :n_beam] = rng.random(n_beam) < 0.5
+        sc[q, l + admitted] = vals[n_beam:]
+        ids[q, l + admitted] = rng.integers(0, n_sentinel, len(admitted))
+    return sc, ids, exp
+
+
+@pytest.mark.parametrize("p2,l", [(512, 64), (2048, 1024)])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_bitonic_desc_is_stable_sort_on_distinct_scores(p2, l, seed):
+    """The premise of the CUDA kernel's rank merge: where the live scores
+    of [beam | candidates | pad] are distinct, the bitonic network gives
+    the stable descending sort of the live entries, then an all-sentinel
+    -inf tail, and `_needs_network` lets the rank merge take the hop."""
+    n_sentinel = 100_000
+    rng = np.random.default_rng(seed)
+    sc, ids, exp = _merge_input(rng, 6, p2, l, 256, n_sentinel)
+    s_sc, s_id, s_exp = (t.numpy() for t in tf._bitonic_desc(
+        torch.from_numpy(sc), torch.from_numpy(ids), torch.from_numpy(exp)))
+    for q in range(sc.shape[0]):
+        live = np.flatnonzero(sc[q] > -np.inf)
+        order = live[np.argsort(-sc[q, live], kind="stable")]
+        n = len(order)
+        np.testing.assert_array_equal(s_sc[q, :n], sc[q, order])
+        np.testing.assert_array_equal(s_id[q, :n], ids[q, order])
+        np.testing.assert_array_equal(s_exp[q, :n], exp[q, order])
+        assert (s_sc[q, n:] == -np.inf).all()
+        assert (s_id[q, n:] == n_sentinel).all() and not s_exp[q, n:].any()
+    t = {k: torch.from_numpy(v) for k, v in
+         (("sc", sc), ("ids", ids), ("exp", exp))}
+    flag = tf._needs_network(t["sc"][:, :l], t["ids"][:, :l],
+                             t["exp"][:, :l], t["sc"][:, l:l + 256],
+                             t["sc"][:, l:l + 256] > -np.inf, n_sentinel)
+    assert not flag.any()
+
+
+@pytest.mark.parametrize("p2,l", [(512, 64), (2048, 1024)])
+def test_bitonic_desc_reorders_equal_scores(p2, l):
+    """Why the rank merge needs the tie flag: with two equal live scores
+    (a beam entry and a candidate), the network puts the candidate first
+    for some positions, an order that a stable sort never gives; the
+    flag sends every such hop to the network."""
+    n_sentinel = 100_000
+    rng = np.random.default_rng(3)
+    rows = 64
+    sc, ids, exp = _merge_input(rng, rows, p2, l, 256, n_sentinel)
+    pairs = []
+    for q in range(rows):
+        beam = np.flatnonzero(sc[q, :l] > -np.inf)
+        cand = l + np.flatnonzero(sc[q, l:l + 256] > -np.inf)
+        i, j = int(rng.choice(beam)), int(rng.choice(cand))
+        sc[q, j] = sc[q, i]
+        pairs.append((i, j))
+    _, s_id, _ = (t.numpy() for t in tf._bitonic_desc(
+        torch.from_numpy(sc), torch.from_numpy(ids), torch.from_numpy(exp)))
+    cand_first = [list(s_id[q]).index(ids[q, j]) < list(s_id[q]).index(ids[q, i])
+                  for q, (i, j) in enumerate(pairs)]
+    assert any(cand_first)
+    t = torch.from_numpy(sc)
+    flag = tf._needs_network(t[:, :l], torch.from_numpy(ids[:, :l]),
+                             torch.from_numpy(exp[:, :l]), t[:, l:l + 256],
+                             t[:, l:l + 256] > -np.inf, n_sentinel)
+    assert flag.all()
+
+
 @pytest.mark.parametrize("metric,expansions,track", [
     ("l2", 2, 160), ("l2", 1, 0), ("ip", 2, 0), ("ip", 1, 160)])
 def test_plain_matches_reference_kernel(packed, metric, expansions, track):
@@ -200,6 +279,43 @@ def test_plain_query_groups_equal_reference_on_duplicates(metric, expansions,
     assert ties.any(), "the corpus must put tied scores in the beams"
     for a, ref in zip(to, jo):
         np.testing.assert_array_equal(a.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("duplicates", [False, True])
+def test_plain_merge_stats(packed, duplicates):
+    """merge_stats adds (slow merges, active hops) per query and leaves the
+    other outputs as they are: hops are the hops that logged a node, and
+    only a corpus with repeated rows (equal int8 scores) sends hops to
+    the bitonic network."""
+    x, adj = packed["x"], packed["adj"]
+    if duplicates:
+        x = np.concatenate([x[:350], x[:350]])
+        adj = _graph(x, packed["r"], seed=5)
+    st = tf.state_from_reference(x, adj, medoid=0, device="cpu")
+    rng = np.random.default_rng(7)
+    b = 12
+    q = torch.from_numpy(x[rng.integers(0, len(x), b)] + rng.standard_normal(
+        (b, x.shape[1])).astype(np.float32) * 0.02)
+    medoid = st["corpus"][0]
+    sc = (2.0 * q @ medoid - st["sq_norms"][0])[:, None]
+    kw = dict(r=packed["r"], beam_width=32, max_iters=60, metric="l2",
+              expansions=2, qb=4, ring_size=256, track_visited=120)
+    args = (q, st["blocks"], st["meta"], torch.zeros((b, 1), dtype=torch.int32),
+            sc.contiguous(), torch.full((b,), -1, dtype=torch.int32))
+    plain = tf.fused_beam_search(*args, **kw)
+    got = tf.fused_beam_search(*args, merge_stats=True, **kw)
+    assert len(got) == len(plain) + 2
+    for a, ref in zip(got, plain):
+        assert torch.equal(a, ref)
+    slow, hops = got[-2:]
+    assert slow.dtype == hops.dtype == torch.int32
+    logged = (got[2][:, ::2] != len(x)).sum(1).to(torch.int32)
+    assert torch.equal(hops, logged) and bool((hops > 0).all())
+    assert bool((slow <= hops).all())
+    if duplicates:
+        assert int(slow.sum()) > 0
+    else:
+        assert int(slow.sum()) == 0
 
 
 def test_engine_matches_reference_engine(packed):

@@ -163,21 +163,33 @@ def test_ivf_no_vector_dropped_by_overflow():
 
 @pytest.mark.parametrize("metric", ["l2", "cosine"])
 def test_ivf_search_many_device_matches_single(metric):
-    """[M, B, D] batches give search_device's results; for cosine these
-    are cosine scores (the reference's search_many_device skips the
-    query normalization, ROADMAP Queue C)."""
+    """[M, B, D] batches give the reference's search_many_device on the
+    same tables (the queries go in as they are, so cosine scores carry
+    |q|), and for l2 also search_device's results batch by batch."""
+    import jax.numpy as jnp
+
     x = clustered(3000, 32, 40, seed=13)
-    eng = tivf.IvfEngine(x, n_clusters=64, metric=metric, device="cpu")
+    ref = jivf.IvfEngine(x, n_clusters=64, metric=metric)
+    eng = tivf.IvfEngine(x, metric=metric, centers=np.asarray(ref.centers),
+                         assign=np.asarray(ref.assign), device="cpu")
     rng = np.random.default_rng(14)
-    qs = torch.from_numpy(x[rng.integers(0, 3000, (3, 8))] + np.float32(0.01))
-    ids_m, sc_m = eng.search_many_device(qs, k=10, nprobe=16)
+    qs = 2.0 * x[rng.integers(0, 3000, (3, 8))] + np.float32(0.01)
+    ids_m, sc_m = eng.search_many_device(torch.from_numpy(qs), k=10,
+                                         nprobe=16)
     assert ids_m.shape == (3, 8, 10)
+    want = ref.search_many_device(jnp.asarray(qs), k=10, nprobe=16)
     for m in range(3):
-        ids_1, sc_1 = eng.search_device(qs[m], k=10, nprobe=16)
-        assert torch.equal(ids_m[m], ids_1)
-        assert torch.equal(sc_m[m], sc_1)
+        rows = separable_rows(qs[m], x, metric)
+        assert_search_equal((ids_m[m].numpy(), sc_m[m].numpy()),
+                            (np.asarray(want[0][m]), np.asarray(want[1][m])),
+                            rows)
+        if metric != "cosine":
+            ids_1, sc_1 = eng.search_device(torch.from_numpy(qs[m]), k=10,
+                                            nprobe=16)
+            assert torch.equal(ids_m[m], ids_1)
+            assert torch.equal(sc_m[m], sc_1)
     if metric == "cosine":
-        assert float(sc_m.max()) <= 1.0 + 1e-5
+        assert float(sc_m.max()) > 1.5
 
 
 def test_calibrate_nprobe_matches_reference():

@@ -224,21 +224,35 @@ def test_int8_rescore_close_to_f32():
 
 @pytest.mark.parametrize("metric", ["ip", "cosine"])
 def test_search_many_device_matches_single(metric):
-    """Each batch goes through `search_device`, so cosine queries are
-    normalized (the reference's scan passes them un-normalized and its
-    cosine scores carry the factor |q|)."""
+    """For ip, each batch gives search_device's results. For cosine the
+    queries go in as they are, as in the reference, whose
+    search_many_device on the same tables the port must give (scores
+    carry |q|)."""
+    import jax.numpy as jnp
+
     x = clustered(n=3000, d=32, k=24, seed=7)
-    eng = tpq.IvfPqEngine(x, n_clusters=48, metric=metric, m=8,
-                          rescore="f32", device="cpu")
     rng = np.random.default_rng(8)
-    qs = torch.from_numpy(2.0 * x[rng.integers(0, len(x), (2, 8))])
-    ids_m, sc_m = eng.search_many_device(qs, k=5, nprobe=16)
+    qs = 2.0 * x[rng.integers(0, len(x), (2, 8))]
+    if metric == "cosine":
+        ref = jpq.IvfPqEngine(x, n_clusters=48, metric=metric, m=8,
+                              rescore="f32")
+        eng = tpq.state_from_reference(ref_arrays(ref, metric), device="cpu")
+    else:
+        eng = tpq.IvfPqEngine(x, n_clusters=48, metric=metric, m=8,
+                              rescore="f32", device="cpu")
+    ids_m, sc_m = eng.search_many_device(torch.from_numpy(qs), k=5,
+                                         nprobe=16)
     assert ids_m.shape == (2, 8, 5)
+    if metric == "cosine":
+        want = ref.search_many_device(jnp.asarray(qs), k=5, nprobe=16)
+        np.testing.assert_array_equal(ids_m.numpy(), np.asarray(want[0]))
+        np.testing.assert_allclose(sc_m.numpy(), np.asarray(want[1]),
+                                   rtol=1e-5, atol=1e-4)
+        assert float(sc_m.max()) > 1.5
+        return
     for i in range(2):
         ids_1, sc_1 = eng.search_device(qs[i], k=5, nprobe=16)
         assert torch.equal(ids_m[i], ids_1) and torch.equal(sc_m[i], sc_1)
-    if metric == "cosine":
-        assert float(sc_m.max()) <= 1.0 + 1e-5
 
 
 def test_search_many_device_matches_reference_ip():
