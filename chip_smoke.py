@@ -24,7 +24,10 @@ on stdout:
            pq_beam_search vs pq_beam_search_plain: N=4096, R=48, L=64,
            B=1023 with `exclude`, ksub 16 and 256, l2 and ip, E 1 and
            2, visited log 0 and 256, m=16 at D=96, m=64 at D=768, and a
-           residual case (coarse_m=2, m=12, l2 norm columns);
+           residual case (coarse_m=2, m=12, l2 norm columns); each row
+           with CTAs per SM, the settle pass's queries and empty merges,
+           and the earlier design's time (`ms_pr6`: its source
+           `csrc/pq_beam_scan.cu`, built beside, timed in turns);
            ivf_bucket_dots and ivf8_bucket_scores vs their plain versions
            on small grids: D of 96, 128, 768 (16-byte loads) and 24 / 20
            (single elements), caps not multiples of 32, odd batches,
@@ -404,19 +407,22 @@ def check_case(torch, label, kw, reps):
 
 
 def pq_bound(kw):
-    """(bound ms, "bytes" or "operations", expansions) of one
-    pq_beam_search call. Counts what this call's data needs: each
-    expanded record's R id lanes and its m*lps code words read once
-    (4 bytes each), the LUTs, seeds and exclude read once, beam ids +
+    """(bound ms, "bytes" or "operations", expansions, active hops per
+    query) of one pq_beam_search call. Counts what this call's data
+    needs: each expanded record's R id lanes and its m*lps code words read
+    once (4 bytes each), the LUTs, seeds and exclude read once, beam ids +
     scores and the visited log written once; R*m fp32 adds per expansion.
     The expansions are counted by rerunning the kernel with a visited log
-    long enough for every hop (it then never wraps)."""
+    long enough for every hop (it then never wraps); a hop is active when
+    its first slot holds a node."""
     from leann_tpu_torch.ops import pq_beam as pb
 
     e = kw["expansions"]
     vlog = pb.pq_beam_search(
         **dict(kw, track_visited=kw["max_iters"] * e))[2]
     expansions = int((vlog != kw["records"].shape[0] - 1).sum())
+    hops = (vlog[:, : kw["max_iters"] * e : e]
+            != kw["records"].shape[0] - 1).sum(1)
     b, mk = kw["luts"].shape
     r, m, s = kw["r"], kw["m"], kw["seed_ids"].shape[1]
     lps = r // (32 // kw["bits"])
@@ -426,14 +432,49 @@ def pq_bound(kw):
     t_bytes = bytes_ / H100_BYTES_PER_S
     t_ops = expansions * r * m / H100_FP32_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations", expansions)
+            "bytes" if t_bytes >= t_ops else "operations", expansions, hops)
+
+
+def pq_scan_search(torch, kw):
+    """pq_beam_search's arguments through B3's earlier design
+    (`csrc/pq_beam_scan.cu`, the same C interface): the yardstick the
+    current kernel is timed against."""
+    import ctypes
+
+    from leann_tpu_torch.ops import _cuda
+    from leann_tpu_torch.ops import pq_beam as pb
+
+    lib = _cuda.load("pq_beam_scan")
+    luts, rec = kw["luts"], kw["records"]
+    b, e, l = luts.shape[0], kw["expansions"], kw["beam_width"]
+    _, p2, v, vt = pb._sizes(l, e, kw["ring_size"], kw["track_visited"])
+    slots = pb.pq_layout(kw["r"], kw["m"], kw["bits"])[2]
+    out = [torch.empty((b, l), dtype=dt, device=luts.device)
+           for dt in (torch.int32, torch.float32)]
+    vlog = torch.empty((b, max(vt, 1)), dtype=torch.int32, device=luts.device)
+    hops = torch.empty((b,), dtype=torch.int32, device=luts.device)
+    err = lib.leann_pq_beam_search(
+        *(kw[k].data_ptr() for k in ("luts", "records", "seed_ids",
+                                     "seed_scores", "exclude")),
+        out[0].data_ptr(), out[1].data_ptr(), vlog.data_ptr() if vt else None,
+        hops.data_ptr(), (ctypes.c_int * kw["m"])(
+            *(pj * pb.LANES + off for pj, off in slots)),
+        b, kw["r"], kw["m"], kw["ksub"], kw["bits"], rec.shape[1],
+        kw["seed_ids"].shape[1], l, e, p2, v, vt, kw["max_iters"], kw["qb"],
+        rec.shape[0] - 1, torch.cuda.current_stream(luts.device).cuda_stream)
+    _cuda.check(lib, err, "pq_beam_scan")
+    return (*out, vlog) if vt else tuple(out)
 
 
 def check_case_pq(torch, label, kw, reps):
     """pq_beam_search vs pq_beam_search_plain on the card: ids, scores
     and visited log equal exactly (the plain version reproduces the
-    kernel's roundings and query groups), with both device ms and the
-    bound. Raises on any difference."""
+    kernel's roundings and query groups), with both device ms, the bound,
+    CTAs per SM, the settle pass's work (queries whose group stayed active
+    after they converged and whose beam holds a tie, and the empty merges
+    they take), and the earlier design's ms, timed in turns with the
+    kernel (earlier, current, current, earlier). Raises on any difference
+    of the kernel."""
     from leann_tpu_torch.ops import pq_beam as pb
 
     got = pb.pq_beam_search(**kw)
@@ -442,13 +483,24 @@ def check_case_pq(torch, label, kw, reps):
     same = got[0] == ref[0]
     both = same & torch.isfinite(ref[1])
     err = float((got[1] - ref[1]).abs()[both].max()) if bool(both.any()) else 0.0
-    ms, _ = cuda_ms(lambda: pb.pq_beam_search(**kw), reps)
-    bound_ms, bound_by, expansions = pq_bound(kw)
+    before = pq_scan_search(torch, kw)
+    equal_before = all(bool(torch.equal(a, b)) for a, b in zip(before, ref))
+    turns = {"current": [], "earlier": []}
+    for which in ("earlier", "current", "current", "earlier"):
+        fn = ((lambda: pb.pq_beam_search(**kw)) if which == "current"
+              else (lambda: pq_scan_search(torch, kw)))
+        turns[which].append(cuda_ms(fn, reps)[0])
+    ms = float(np.mean(turns["current"]))
+    bound_ms, bound_by, expansions, hops = pq_bound(kw)
     b, mk = kw["luts"].shape
     sc = got[1]
     live = torch.isfinite(sc[:, 1:]) & torch.isfinite(sc[:, :-1])
-    tie_share = float(((sc[:, 1:] == sc[:, :-1]) & live).sum()
-                      / max(1, int(live.sum())))
+    ties = (sc[:, 1:] == sc[:, :-1]) & live
+    tie_share = float(ties.sum() / max(1, int(live.sum())))
+    qb = kw["qb"]
+    group = torch.cat([hops, hops.new_zeros(-b % qb)]).reshape(-1, qb)
+    idle = group.amax(1).repeat_interleave(qb)[:b] - hops
+    settled = (idle > 0) & ties.any(1)
     row = {"case": label, "b": b, "r": kw["r"], "m": kw["m"],
            "ksub": kw["ksub"], "l": kw["beam_width"], "e": kw["expansions"],
            "track_visited": kw["track_visited"], "qb": kw["qb"],
@@ -456,7 +508,16 @@ def check_case_pq(torch, label, kw, reps):
            "ids_equal": float(same.float().mean()), "all_equal": all(equal),
            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": bound_ms, "bound_by": bound_by,
-           "expansions": expansions, "beam_tie_share": tie_share}
+           "expansions": expansions, "beam_tie_share": tie_share,
+           "ms_turns": turns["current"],
+           "ms_pr6": float(np.mean(turns["earlier"])),
+           "earlier_turns": turns["earlier"], "earlier_equal": equal_before,
+           "settle_queries": int(settled.sum()),
+           "settle_empty_merges": int(idle[settled].sum()),
+           "ctas_per_sm": pb.ctas_per_sm(
+               kw["m"], kw["ksub"], kw["records"].shape[1],
+               kw["beam_width"], kw["expansions"], kw["ring_size"],
+               kw["track_visited"])}
     if not all(equal) or len(got) != len(ref):
         raise AssertionError(f"pq_beam_search disagrees with its plain "
                              f"version: {json.dumps(row)}")
@@ -633,7 +694,7 @@ def phase_build():
     from leann_tpu_torch.ops import _cuda
 
     libs = ("fused_beam", "pq_beam", "ivf_bucket_dots", "ivf8_scan",
-            "gather_score")
+            "gather_score", "pq_beam_scan")
     t0 = time.perf_counter()
     _cuda.build(libs)
     for name in libs:

@@ -40,7 +40,11 @@ SIGNATURES = {
     },
     "pq_beam": {
         "leann_pq_beam_search": ([_PTR] * 10 + [_I32] * 15 + [_PTR], _I32),
-        "leann_pq_beam_smem_bytes": ([_I32] * 6, ctypes.c_size_t),
+        "leann_pq_beam_smem_bytes": ([_I32] * 7, ctypes.c_size_t),
+        "leann_pq_beam_ctas_per_sm": ([_I32] * 7, _I32),
+    },
+    "pq_beam_scan": {
+        "leann_pq_beam_search": ([_PTR] * 10 + [_I32] * 15 + [_PTR], _I32),
     },
     "ivf_bucket_dots": {
         "leann_ivf_bucket_dots": ([_PTR] * 4 + [_I32] * 7 + [_PTR], _I32),

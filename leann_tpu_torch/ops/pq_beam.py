@@ -276,6 +276,8 @@ def pq_beam_search_plain(
 
 # ------------------------------------------------------------- the kernel
 
+MAX_SORT = 4096   # the CUDA kernel's largest sort width (P2)
+
 
 def _check_inputs(luts, records, seed_ids, seed_scores, exclude, r, m, ksub,
                   bits, beam_width, expansions, qb):
@@ -354,7 +356,11 @@ def pq_beam_search(
     s = seed_ids.shape[1]
     _, p2, v, vt = _sizes(l, e, ring_size, track_visited)
     _, _, slots, _ = pq_layout(r, m, bits)
-    smem = lib.leann_pq_beam_smem_bytes(m * ksub, cp, e, p2, (v + 3) & ~3, vt)
+    if p2 > MAX_SORT:
+        raise ValueError(f"PQ kernel sorts at most {MAX_SORT} entries: "
+                         f"beam_width + {e}*128 = {l + e * LANES}")
+    smem = lib.leann_pq_beam_smem_bytes(m * ksub, cp, e, l, p2,
+                                        (v + 3) & ~3, vt)
     if smem > 232448:
         raise ValueError(f"PQ kernel needs {smem} B of shared memory per "
                          "query (> 227 KB); lower m, ksub or ring_size")
@@ -381,6 +387,23 @@ def pq_beam_search(
 
 
 pq_beam_search.launches = 0
+
+
+def ctas_per_sm(m: int, ksub: int, cp: int, beam_width: int,
+                expansions: int = 2, ring_size: int = 1024,
+                track_visited: int = 0) -> int:
+    """CTAs of the CUDA traversal kernel that fit on one SM at these
+    sizes (its shared memory, registers and 256 threads), as the CUDA
+    occupancy calculator gives them. Needs the card."""
+    from leann_tpu_torch.ops import _cuda
+
+    lib = _cuda.load("pq_beam")
+    _, p2, v, vt = _sizes(beam_width, expansions, ring_size, track_visited)
+    n = lib.leann_pq_beam_ctas_per_sm(m * ksub, cp, expansions, beam_width,
+                                      p2, (v + 3) & ~3, vt)
+    if n < 0:
+        _cuda.check(lib, -n, "pq_beam ctas_per_sm")
+    return n
 
 
 # ------------------------------------------------------------- host engine

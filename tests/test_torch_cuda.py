@@ -232,6 +232,87 @@ def test_pq_kernel_equals_plain(dev, graph96, metric, ksub, e, track):
         assert torch.equal(a, r)
 
 
+@pytest.fixture(scope="module")
+def pq_engines(graph96, dev):
+    x, adj, medoid = graph96
+    return {ksub: tp.PqBeamEngine(x, adj, medoid, metric="l2", m=16,
+                                  ksub=ksub, kmeans_iters=4, device=dev)
+            for ksub in (16, 256)}
+
+
+def pq_equal(kw):
+    """B3 against its plain version on the card, exactly (ids, scores,
+    visited log), with one launch counted."""
+    before = tp.pq_beam_search.launches
+    got = tp.pq_beam_search(**kw)
+    torch.cuda.synchronize()
+    assert tp.pq_beam_search.launches == before + 1
+    ref = tp.pq_beam_search_plain(**kw)
+    assert len(got) == len(ref) == (3 if kw["track_visited"] else 2)
+    for a, r in zip(got, ref):
+        assert torch.equal(a, r)
+    return ref
+
+
+@pytest.mark.parametrize("beam,ksub,e,track,ring", [
+    (96, 256, 2, 256, 1024), (192, 16, 2, 0, 1024), (256, 256, 1, 256, 1024),
+    (256, 16, 2, 256, 1), (512, 256, 2, 256, 1024), (512, 16, 1, 0, 1),
+    (64, 256, 1, 0, 1)])
+def test_pq_kernel_sort_widths(dev, graph96, pq_engines, beam, ksub, e,
+                               track, ring):
+    """Every sort width the network is built for up to P2 = 1024 (L=512):
+    beams 96 and 192 (not powers of two), 256 with E 1 and 2, 512; ksub
+    16 and 256; the minimum ring (ring_size 1, so V = P2) at P2 = 256,
+    512 and 1024; the engine's own max_iters."""
+    x = graph96[0]
+    rng = np.random.default_rng(beam + ksub + e)
+    b = 77
+    q = torch.from_numpy(x[rng.integers(0, len(x), b)] + np.float32(0.05)).to(dev)
+    exc = torch.from_numpy(
+        rng.integers(-1, len(x), b).astype(np.int32)).to(dev)
+    kw = dict(pq_engines[ksub].kernel_args(q, exc, beam), expansions=e,
+              track_visited=track, ring_size=ring,
+              max_iters=(4 * beam) // e + 32)
+    assert tp._sizes(beam, e, ring, track)[1] in (256, 512, 1024)
+    pq_equal(kw)
+
+
+@pytest.mark.parametrize("ksub", [16, 256])
+def test_pq_kernel_settle_on_duplicate_rows(dev, ksub):
+    """Rows that appear two or three times give equal codes, so equal
+    ADC scores: converged beams hold ties, and queries of one group of
+    qb converge at different hops, so the settle pass applies many
+    empty merges (pi^idle). One query's seeds are all -inf (it never
+    expands: its beam takes the merges one by one) and another's half."""
+    rng = np.random.default_rng(8)
+    basis, _ = np.linalg.qr(rng.standard_normal((96, 16)))
+    lat = (4.0 * rng.standard_normal((16, 16)))[rng.integers(0, 16, 900)]
+    base = ((lat + rng.standard_normal((900, 16))) @ basis.T).astype(np.float32)
+    x = np.concatenate([base, base, base[:400]])[rng.permutation(2200)]
+    adj, medoid = build_vamana(x, graph_degree=48, complexity=64,
+                               metric="l2", wave_size=1024, device=dev)
+    eng = tp.PqBeamEngine(x, adj, medoid, metric="l2", m=16, ksub=ksub,
+                          kmeans_iters=4, device=dev)
+    b = 48
+    q = torch.from_numpy(x[rng.integers(0, len(x), b)]
+                         + np.float32(0.02)).to(dev)
+    none = torch.full((b,), -1, dtype=torch.int32, device=dev)
+    for qb, beam in ((4, 64), (16, 96)):
+        kw = eng.kernel_args(q, none, beam)
+        sc = kw["seed_scores"].clone()
+        sc[5] = float("-inf")
+        sc[6, ::2] = float("-inf")
+        kw = dict(kw, seed_scores=sc, qb=qb,
+                  track_visited=kw["max_iters"] * 2)
+        ref = pq_equal(kw)
+        ties = (ref[1][:, 1:] == ref[1][:, :-1]) & torch.isfinite(ref[1][:, 1:])
+        assert bool(ties.any())
+        # expansions per query: queries of a group converge apart
+        done = (ref[2] != eng.n).sum(1).reshape(-1, qb)
+        assert int((done.amax(1, keepdim=True) - done > 8).sum()) > 0
+        assert int(done[5 // qb, 5 % qb]) == 0
+
+
 @pytest.mark.parametrize("coarse", [0, 2])
 def test_pq_kernel_equals_plain_m64_d768(dev, coarse):
     """m=64 at D=768 (a 64 KB LUT in shared memory, 7-plane records), and

@@ -369,3 +369,88 @@ def test_graph_searcher_cpu_auto_stays_inline(monkeypatch):
     g = GraphFile(np.zeros((64, 8), np.int32), 0, "l2")
     s = GraphSearcher(vecs, g, metric="l2", device="cpu")
     assert isinstance(s.engine, BeamSearchEngine)
+
+
+def _pi_power(pi, n):
+    """pi^n of a permutation given as 'output f takes input pi[f]', by
+    repeated squaring (the CUDA settle pass computes it so)."""
+    out = np.arange(len(pi))
+    base = np.asarray(pi)
+    while n:
+        if n & 1:
+            out = base[out]
+        base = base[base]
+        n >>= 1
+    return out
+
+
+@pytest.mark.parametrize("p2,beam,e", [(256, 100, 1), (512, 256, 2),
+                                       (1024, 400, 2)])
+def test_empty_merges_are_one_permutation_raised_to_a_power(p2, beam, e):
+    """A converged beam (live prefix non-increasing, then (-inf,
+    sentinel)) under n empty merges, each `_bitonic_desc` over [beam |
+    (-inf, sentinel) pad] with the entries past L killed, equals pi^n on
+    its live prefix, pi being the network's permutation from one run:
+    ids and score bits (+0.0 and -0.0 tie but differ), n up to the
+    engine's max_iters. This is what lets the settle pass take pi^idle
+    instead of idle merges."""
+    from leann_tpu_torch.ops.fused_beam import _bitonic_desc, _sizes
+
+    assert _sizes(beam, e, 1024, 0)[1] == p2
+    max_iters = (4 * beam) // e + 32
+    rng = np.random.default_rng(p2)
+    q, sentinel = 6, 10**6
+    levels = np.array([2.5, 1.0, 0.0, -0.0, -1.0], np.float32)
+    sc = np.full((q, beam), -np.inf, np.float32)
+    ids = np.full((q, beam), sentinel, np.int64)
+    live = rng.integers(beam // 2, beam + 1, q)
+    live[0] = beam
+    for i in range(q):
+        sc[i, : live[i]] = -np.sort(-rng.choice(levels, live[i]))
+        ids[i, : live[i]] = rng.permutation(sentinel)[: live[i]]
+    assert (sc.view(np.uint32) == np.float32(-0.0).view(np.uint32)).any()
+    steps = rng.integers(1, max_iters + 1, q)
+    steps[0] = max_iters
+
+    def pad(x, fill):
+        return torch.cat([torch.from_numpy(x), torch.full(
+            (q, p2 - beam), fill, dtype=torch.from_numpy(x).dtype)], 1)
+
+    flags = torch.zeros((q, p2), dtype=torch.bool)
+    _, pi, _ = _bitonic_desc(pad(sc, -np.inf),
+                             torch.arange(p2).repeat(q, 1), flags)
+    cur_sc, cur_id = torch.from_numpy(sc), torch.from_numpy(ids)
+    for n in range(1, max_iters + 1):
+        s, i, _ = _bitonic_desc(pad(cur_sc.numpy(), -np.inf),
+                                pad(cur_id.numpy(), sentinel), flags)
+        cur_sc, cur_id = s[:, :beam], i[:, :beam]
+        for row in np.flatnonzero(steps == n):
+            nl = live[row]
+            p = pi[row, :nl].numpy()
+            assert sorted(p.tolist()) == list(range(nl))
+            want = _pi_power(p, n)
+            np.testing.assert_array_equal(cur_id[row, :nl].numpy(),
+                                          ids[row, want])
+            np.testing.assert_array_equal(
+                cur_sc[row, :nl].numpy().view(np.uint32),
+                sc[row, want].view(np.uint32))
+            assert (cur_id[row, nl:] == sentinel).all()
+            assert torch.isneginf(cur_sc[row, nl:]).all()
+
+
+def test_tied_order_is_not_a_function_of_positions():
+    """Why the merge runs the network: no sort key of (score, input
+    position) reproduces its order of ties. In the merge's shape (a
+    sorted beam of 2, 4 candidates, -inf pad) the tied entries at
+    positions 1 and 3 leave in one order, and in the other once the
+    candidate at position 2 scores 2 instead of 0."""
+    from leann_tpu_torch.ops.fused_beam import _bitonic_desc
+
+    ninf = float("-inf")
+    x = torch.tensor([[1.0, 0.0, 0.0, 0.0, 0.0, 0.0, ninf, ninf],
+                      [1.0, 0.0, 2.0, 0.0, 0.0, 0.0, ninf, ninf]])
+    pos = torch.arange(8).repeat(2, 1)
+    _, order, _ = _bitonic_desc(x, pos, torch.zeros_like(pos, dtype=torch.bool))
+    first, second = order.tolist()
+    assert first.index(1) < first.index(3)
+    assert second.index(3) < second.index(1)
