@@ -29,10 +29,15 @@ on stdout:
            and the earlier design's time (`ms_pr6`: its source
            `csrc/pq_beam_scan.cu`, built beside, timed in turns);
            ivf_bucket_dots and ivf8_bucket_scores vs their plain versions
-           on small grids: D of 96, 128, 768 (16-byte loads) and 24 / 20
+           on small grids: D of 96, 128, 768 (16-byte copies) and 24 / 20
            (single elements), caps not multiples of 32, odd batches,
            empty (-1) slots, a probe list that repeats one bucket; l2
-           and ip for ivf8;
+           and ip for ivf8; each row with a repeat (equal bits), the
+           earlier design (one CTA per (query, probe): its sources
+           `csrc/ivf_bucket_dots_pairs.cu` / `ivf8_scan_pairs.cu`, built
+           beside) held to the same tolerance and timed in turns
+           (`ms_pr3`), the reuse (distinct buckets, queries per bucket),
+           the work items and CTAs per SM;
            gather_score vs gather_score_plain: D of 96, 128, 64 (16-byte
            loads), 100 (4-byte) and 50 (single bytes), R of 48, 128, 7
            and 200, odd batches, duplicate ids and the rows 0 and N-1
@@ -107,8 +112,10 @@ on stdout:
            (1M, B=2048); pq_beam_search at deep search (1M, B=2048, beam
            64 and DEEP_BEAM); ivf_bucket_dots at the ivf phase's search
            (B=2048, nprobe 8) and ivf8_bucket_scores at the ivf8 phase's
-           (B=512 and 2048); gather_score at the gather phase's (10M x
-           128, B=2048, R=48, distinct ids per call); each timed beside
+           (B=512 and 2048, and a hot case: B=2048 with every query
+           probing the 8 most-probed buckets); gather_score at the
+           gather phase's (10M x 128, B=2048, R=48, distinct ids per
+           call); each timed beside
            its bound, the bucket kernels also beside torch.bmm over
            buckets gathered beforehand, gather_score beside `corpus[ids]`
            + torch.bmm in bf16, both inside the timed window
@@ -560,13 +567,37 @@ def bucket_bound(kind, probe, cap, d):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def bucket_reuse(torch, probe, n_buckets, d):
+    """How the probes share buckets: distinct buckets, pairs per probed
+    bucket (mean, max), and the work items the bucket-major kernels run
+    (items with pairs)."""
+    from leann_tpu_torch.ops import bucket_kernels as bk
+
+    flat = probe.reshape(-1).long()
+    counts = torch.bincount(flat[(flat >= 0) & (flat < n_buckets)],
+                            minlength=n_buckets)
+    distinct = int((counts > 0).sum())
+    items = bk.bucket_worklist(probe, n_buckets, bk._qmax(d))[1]
+    return {"distinct_buckets": distinct,
+            "queries_per_bucket_mean": int(counts.sum()) / max(1, distinct),
+            "queries_per_bucket_max": int(counts.max()),
+            "work_items": int((items[:, 2] > 0).sum()),
+            "grid": items.shape[0]}
+
+
 def check_case_bucket(torch, label, kind, args, metric, reps, library=False):
     """A bucket kernel vs its plain version on the card: -inf positions
     equal exactly, no NaN, finite scores within 1e-5 x |q| x (largest row
     norm), l2 twice that (the plain version adds the same exact products
-    in another order). With `library`, also torch.bmm in bf16 over the
-    probed buckets gathered beforehand (the gather not timed), a
-    yardstick the port never calls. Raises on disagreement."""
+    in another order); a repeat gives the same bits; the earlier design
+    (one CTA per (query, probe), `csrc/*_pairs.cu`, launched by
+    `evals.bucket_scan_cycles.earlier`) within the same tolerance, timed
+    in turns with the kernel (earlier, current, current, earlier:
+    `ms_pr3`). With
+    `library`, also torch.bmm in bf16 over the probed buckets gathered
+    beforehand (the gather not timed), a yardstick the port never calls.
+    Raises on disagreement."""
+    from leann_tpu_torch.evals.bucket_scan_cycles import earlier
     from leann_tpu_torch.ops import bucket_kernels as bk
 
     q, probe, table = args[:3]
@@ -580,14 +611,27 @@ def check_case_bucket(torch, label, kind, args, metric, reps, library=False):
         plain = lambda: bk.ivf8_bucket_scores_plain(*args, metric)
         row = max_row_norm(kind, (table, args[3], args[6]))
     got = fn()
+    repeat_equal = bool(torch.equal(got, fn()))
     plain_ms, ref = cuda_ms(plain, 1)
-    neg_equal = bool(torch.equal(torch.isneginf(got), torch.isneginf(ref)))
-    nan = bool(torch.isnan(got).any())
     live = torch.isfinite(ref)
-    err = float((got - ref).abs()[live].max()) if bool(live.any()) else 0.0
     tol = 1e-5 * float(q.norm(dim=1).max()) * row * (
         2 if metric == "l2" else 1)
-    ms, _ = cuda_ms(fn, reps)
+
+    def agree(out):
+        """(-inf positions equal, any NaN, max error on live scores)"""
+        return (bool(torch.equal(torch.isneginf(out), torch.isneginf(ref))),
+                bool(torch.isnan(out).any()),
+                float((out - ref).abs()[live].max()) if bool(live.any())
+                else 0.0)
+
+    neg_equal, nan, err = agree(got)
+    before = lambda: earlier(torch, kind, args, metric)
+    e_neg, e_nan, e_err = agree(before())
+    turns = {"current": [], "earlier": []}
+    for which in ("earlier", "current", "current", "earlier"):
+        turns[which].append(cuda_ms(fn if which == "current" else before,
+                                    reps)[0])
+    ms = float(np.mean(turns["current"]))
     bound_ms, bound_by = bucket_bound(kind, probe, cap, d)
     lib_ms = None
     if library:
@@ -597,12 +641,20 @@ def check_case_bucket(torch, label, kind, args, metric, reps, library=False):
         qb = q.to(torch.bfloat16)[:, :, None]
         lib_ms, _ = cuda_ms(lambda: torch.bmm(gathered, qb), reps)
         del gathered
+    ctas = (bk.ivf_bucket_dots_ctas_per_sm if kind == "dots"
+            else bk.ivf8_bucket_scores_ctas_per_sm)(d)
     out = {"case": label, "b": q.shape[0], "p": probe.shape[1], "cap": cap,
            "d": d, "metric": metric, "buckets": table.shape[0],
            "neg_inf_equal": neg_equal, "exact": bool(torch.equal(got, ref)),
-           "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
-    if not neg_equal or nan or err > tol:
+           "repeat_equal": repeat_equal, "max_abs_err": err, "tol": tol,
+           "ms": ms, "ms_turns": turns["current"],
+           "ms_pr3": float(np.mean(turns["earlier"])),
+           "earlier_turns": turns["earlier"], "earlier_max_abs_err": e_err,
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": lib_ms, "ctas_per_sm": ctas,
+           **bucket_reuse(torch, probe, table.shape[0], d)}
+    if (not neg_equal or nan or err > tol or not repeat_equal
+            or not e_neg or e_nan or e_err > tol):
         raise AssertionError(f"{kind} kernel disagrees with its plain "
                              f"version: {json.dumps(out)}")
     return out
@@ -694,7 +746,8 @@ def phase_build():
     from leann_tpu_torch.ops import _cuda
 
     libs = ("fused_beam", "pq_beam", "ivf_bucket_dots", "ivf8_scan",
-            "gather_score", "pq_beam_scan")
+            "gather_score", "pq_beam_scan", "ivf_bucket_dots_pairs",
+            "ivf8_scan_pairs")
     t0 = time.perf_counter()
     _cuda.build(libs)
     for name in libs:
@@ -1612,8 +1665,18 @@ def phase_kernels_main(torch, rag, sift, deep, ivf, ivf8, gather):
         torch, f"ivf8 search B{b}", "ivf8",
         (q, probes(ivf8_eng, q), pay, sc, ns, ids, cent), "l2", 10,
         library=True) for b, q in sorted(ivf8_q.items())]
+    # the hot case: all 2048 queries probe the 8 buckets that the batch's
+    # own probes hit most
+    q = ivf8_q[2048]
+    hits = torch.bincount(probes(ivf8_eng, q).reshape(-1).long(),
+                          minlength=pay.shape[0])
+    hot = torch.topk(hits, NPROBE).indices.to(torch.int32)
+    ivf8_rows.append(check_case_bucket(
+        torch, "ivf8 hot B2048", "ivf8",
+        (q, hot.expand(q.shape[0], NPROBE), pay, sc, ns, ids, cent), "l2",
+        10))
     emit({"phase": "kernels_main", "kernel": IVF8["name"], "cases": ivf8_rows,
-          "library_ms": ivf8_rows[-1]["library_ms"]})
+          "library_ms": ivf8_rows[-2]["library_ms"]})
     g_corpus, g_ids, g_q = gather
     gather_rows = [check_case_gather(torch, "gather roofline", g_corpus,
                                      g_ids, g_q, library=True)]
@@ -1692,7 +1755,9 @@ def main() -> int:
             (FUSED, main_rows[-1], rows + main_rows),
             (PQ, pq_main[-1], pq_grid + pq_main),
             (DOTS, dots_main[-1], dots_grid + dots_main),
-            (IVF8, ivf8_main[-1], ivf8_grid + ivf8_main),
+            (IVF8, next(c for c in ivf8_main
+                        if c["case"] == "ivf8 search B2048"),
+             ivf8_grid + ivf8_main),
             (GATHER, gather_main[-1], gather_grid + gather_main)):
         kernels.append({
             **info, "launches": launches[info["name"]],

@@ -1,117 +1,57 @@
 // IVF bucket dot products for Hopper (sm_90a): kernel B4.
 //
-// Replaces the TPU kernel `leann_tpu/ops/pallas_kernels.py:
-// _bucket_dots_kernel`, launched there by `ivf_bucket_dots` (the scan of
+// Replaces the TPU kernel `leann_tpu/ops/pallas_kernels.py:92`
+// (`_bucket_dots_kernel`, launched by `ivf_bucket_dots` :130; the scan of
 // `ivf_search_pallas`, which `IvfEngine.search_pallas` runs). It computes
 //
-//   out[p, b, r] = sum_d bf16(q[b, d]) * vecs[probe[b, p], r, d]
+//   out[j, b, r] = sum_d bf16(q[b, d]) * vecs[probe[b, j], r, d]
 //
 // for q [B, D] f32, probe [B, P] int32 and the bf16 bucket table
 // vecs [K, cap, D], with float32 accumulation; out is [P, B, cap] f32.
 // The caller folds in |v|^2 (l2), masks the sentinel slots and takes the
 // top-k over [B, P*cap].
 //
-// Design. One CTA of 256 threads per (query, probe). The query, rounded
-// to bf16 and held as float, sits in shared memory. The bucket's rows are
-// dealt to groups of G lanes (G = the largest power of two <= min(32,
-// D/8)): lane j of a group reads 16-byte chunks j, j+G, ... of its row (8
-// bf16 values each; neighbouring lanes on neighbouring addresses, a warp
-// covers 32/G whole rows) and adds the eight products in turn with
-// float32 FMAs. bf16 x bf16 products are exact in float32, so each FMA
-// rounds only the sum. A butterfly of shuffles inside the group adds the
-// G partial sums. Where D % 8 != 0 (or the table is not 16-byte aligned)
-// the lanes take single elements instead (W = 1).
+// Bound. Bytes: each probed bucket's rows (cap * D * 2 bytes) read once,
+// and the output (4 * cap bytes per pair) written once; the products
+// (2 * cap * D per pair) are far below the byte time. At ivf search (1M
+// x 128, B = 2048, P = 8, cap 650) some 7 queries probe each bucket, so a
+// grid of one CTA per (query, probe), the earlier design kept in
+// `ivf_bucket_dots_pairs.cu`, read ~7x the bytes that the bound counts
+// and kept one 16-byte load per thread in flight.
 //
-// Bound. Bytes: the probed buckets' rows (cap * D * 2 bytes each) and the
-// output. A bucket that several queries probe is read by each of them;
-// the 50 MB L2 catches part of that reuse, and a bucket-major grid that
-// reads each bucket once for all its queries is later work. The
-// arithmetic (2 * cap * D per pair) is far below the byte time.
-//
-// Offsets are 64-bit: a 10M-row table passes 2^31 elements.
+// Design: the bucket-major scan of `bucket_scan.cuh`. One CTA per item of
+// the work list (one bucket, up to 32 of the queries that probe it) streams
+// the bucket's rows once through a ring of shared-memory tiles filled by
+// cp.async, and scores every query of the item from the same tile with
+// mma.sync m16n8k16 (bf16 in, float32 sums).
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
-
-namespace {
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-
-__global__ void __launch_bounds__(kThreads)
-bucket_dots_kernel(const float* __restrict__ q,
-                   const int32_t* __restrict__ probe,
-                   const __nv_bfloat16* __restrict__ vecs,
-                   float* __restrict__ out, int B, int P, int K, int cap,
-                   int D, int W, int G) {
-  extern __shared__ float qs[];  // [D] bf16-rounded query
-  const int b = blockIdx.x, p = blockIdx.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int i = tid; i < D; i += kThreads)
-    qs[i] = __bfloat162float(__float2bfloat16_rn(q[(size_t)b * D + i]));
-  const int c = probe[(size_t)b * P + p];
-  float* o = out + ((size_t)p * B + b) * cap;
-  if (c < 0 || c >= K) {  // a probe outside the table: NaN, never silence
-    for (int r = tid; r < cap; r += kThreads) o[r] = __int_as_float(0x7fc00000);
-    return;
-  }
-  __syncthreads();
-
-  const __nv_bfloat16* base = vecs + (size_t)c * cap * D;
-  const int rows = 32 / G;       // rows per warp and step
-  const int sub = lane / G, gl = lane % G;
-  for (int r0 = warp * rows; r0 < cap; r0 += kWarps * rows) {
-    const int r = r0 + sub;
-    float acc = 0.f;
-    if (r < cap) {
-      const __nv_bfloat16* row = base + (size_t)r * D;
-      if (W == 8) {
-        for (int ch = gl; ch < D / 8; ch += G) {
-          const uint4 v = *reinterpret_cast<const uint4*>(row + ch * 8);
-          const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-          const float* qq = qs + ch * 8;
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            const float2 f = __bfloat1622float2(h[k]);
-            acc = fmaf(f.x, qq[2 * k], acc);
-            acc = fmaf(f.y, qq[2 * k + 1], acc);
-          }
-        }
-      } else {
-        for (int i = gl; i < D; i += G)
-          acc = fmaf(__bfloat162float(row[i]), qs[i], acc);
-      }
-    }
-    for (int off = G >> 1; off > 0; off >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (r < cap && gl == 0) o[r] = acc;
-  }
-}
-
-}  // namespace
+#include "bucket_scan.cuh"
 
 extern "C" const char* leann_cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// Launches one CTA per (query, probe) on `stream`; W is 8 (16-byte
-// chunks) or 1, G the lanes per row (a power of two <= 32). Returns
-// cudaGetLastError() after the launch (0 = launched).
-extern "C" int leann_ivf_bucket_dots(const float* q, const int32_t* probe,
+// skey [B * P] int32: the flattened probes' keys (K outside [0, K)),
+// sorted stably; pairs [B * P] int64: their positions (b * P + j); start
+// [K + 2] and items [n_items, 3] int32 scratch, n_items = ceil(B * P /
+// qmax) + min(K, B * P); qmax must equal bucket_scan::qmax_for(D); vec = 1
+// takes 16-byte cp.async (needs D * 2 % 16 == 0 and a 16-byte aligned
+// table), vec = 0 single elements. Launches the items kernel, then the
+// scan, on `stream`.
+extern "C" int leann_ivf_bucket_dots(const float* q, const int32_t* skey,
+                                     const long long* pairs, int32_t* start,
+                                     int32_t* items,
                                      const __nv_bfloat16* vecs, float* out,
                                      int B, int P, int K, int cap, int D,
-                                     int W, int G, void* stream) {
-  if ((W != 8 && W != 1) || G < 1 || G > 32 || (G & (G - 1)) ||
-      (W == 8 && D % 8))
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)D * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      bucket_dots_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  if (B <= 0 || P <= 0 || cap <= 0) return 0;
-  bucket_dots_kernel<<<dim3(B, P), kThreads, smem, (cudaStream_t)stream>>>(
-      q, probe, vecs, out, B, P, K, cap, D, W, G);
-  return (int)cudaGetLastError();
+                                     int n_items, int qmax, int vec,
+                                     void* stream) {
+  bucket_scan::Args a = {};
+  a.q = q; a.pairs = pairs; a.rows = vecs; a.out = out;
+  a.B = B; a.P = P; a.K = K; a.cap = cap; a.D = D;
+  return bucket_scan::launch<false>(a, skey, start, items, n_items, qmax, vec,
+                                    stream);
+}
+
+extern "C" int leann_ivf_bucket_dots_ctas_per_sm(int D) {
+  return bucket_scan::ctas_per_sm<false>(D);
 }

@@ -7,8 +7,8 @@ compiled by nvcc for Hopper into `leann_tpu_torch/_build/` (listed in
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
 
-The library name carries a hash of the source, so an edited kernel is
-rebuilt and a stale one is never loaded. Nothing here runs at import
+The library name carries a hash of the source and of the headers in
+csrc/, so an edited kernel is rebuilt and a stale one is never loaded. Nothing here runs at import
 time: the CPU tests import every module on a machine without nvcc.
 """
 
@@ -47,9 +47,19 @@ SIGNATURES = {
         "leann_pq_beam_search": ([_PTR] * 10 + [_I32] * 15 + [_PTR], _I32),
     },
     "ivf_bucket_dots": {
+        "leann_ivf_bucket_dots": ([_PTR] * 7 + [_I32] * 8 + [_PTR], _I32),
+        "leann_ivf_bucket_dots_ctas_per_sm": ([_I32], _I32),
+        "leann_bucket_items": ([_PTR] + [_I32] * 4 + [_PTR] * 3, _I32),
+    },
+    "ivf_bucket_dots_pairs": {
         "leann_ivf_bucket_dots": ([_PTR] * 4 + [_I32] * 7 + [_PTR], _I32),
     },
     "ivf8_scan": {
+        "leann_ivf8_bucket_scores": ([_PTR] * 11 + [_I32] * 9 + [_PTR], _I32),
+        "leann_ivf8_bucket_scores_ctas_per_sm": ([_I32], _I32),
+        "leann_bucket_items": ([_PTR] + [_I32] * 4 + [_PTR] * 3, _I32),
+    },
+    "ivf8_scan_pairs": {
         "leann_ivf8_bucket_scores": ([_PTR] * 8 + [_I32] * 8 + [_PTR], _I32),
     },
     "gather_score": {
@@ -67,8 +77,14 @@ def _nvcc() -> str:
 
 
 def _so_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    """The library's path, named by a hash of its source and of every
+    header in csrc/ (a source may include them)."""
+    h = hashlib.sha256()
+    for fn in [name + ".cu"] + sorted(
+            f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh")):
+        with open(os.path.join(CSRC_DIR, fn), "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"{name}-{digest}.so")
 
 

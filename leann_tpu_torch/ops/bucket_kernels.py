@@ -12,6 +12,8 @@ is named for what it holds).
                        [B, P, cap]; the CUDA kernel `csrc/ivf8_scan.cu`
                        runs on CUDA tensors. Its caller is
                        `IvfInt8Engine` under LEANN_IVF8_PALLAS=1.
+  bucket_worklist      the work list both kernels take: the (query,
+                       probe) pairs grouped by bucket.
 
 Each wrapper runs its plain PyTorch version (`*_plain`) on CPU tensors
 and raises on any other device. The reference's names (`search_pallas`,
@@ -20,10 +22,26 @@ tests written for its API pair up. The reference pads cap and D to its
 TPU tiling and needs B % 8 == 0; the kernels here take unpadded
 [K', cap, D] tables and any B, and the plain versions take either.
 
+Both kernels are bucket-major (`csrc/bucket_scan.cuh`): one CTA per item
+of a work list reads its bucket once for up to `qmax` (32) of the
+queries that probe it. `bucket_worklist` defines the list: the flattened
+probes sorted by bucket (stably; probes outside [0, K') as one more
+group, K', whose items the kernels answer with NaN rows), each bucket's
+pairs cut into items of at most `qmax`, so that a bucket every query
+probes spreads over many SMs. The grid has ceil(B*P / qmax) + min(K',
+B*P) items, enough for any probes, sized from shapes; the unused tail
+has count 0. On the card the wrapper sorts the keys with torch (the
+same `_sorted_keys`) and the kernel library turns them into the items in
+one launch, equal to `bucket_worklist`'s (`tests/test_torch_cuda.py`);
+the torch ops after the sort, some 20 launches, would cost more host
+time than B4 takes on the card. Nothing reads a count back to the host.
+
 Sums: the plain versions are float32 matrix products; the kernels add
-the same exact products (bf16 x bf16 and int8 x bf16 fit float32) in
-another order, so the two agree to float32 rounding of the sums, about
-1e-7 x |q| x |row| (`chip_smoke.py` holds them to 1e-5 x that).
+the same exact products on the tensor cores in another order (bf16 x
+bf16; for B2 int8 x bf16(q) scaled by a power of two into fp16, undone
+exactly after the sum), so the two agree to float32 rounding of the
+sums, about 1e-7 x |q| x |row| (`chip_smoke.py` holds them to 1e-5 x
+that).
 """
 
 from __future__ import annotations
@@ -58,6 +76,89 @@ def _lanes(table: torch.Tensor, elem_bytes: int,
     while g * 2 <= min(32, d // w):
         g *= 2
     return w, g
+
+
+def _smem_stride(nbytes: int, elem: int) -> int:
+    s = -(-nbytes // 16) * 16
+    while (s % 128 != 64) if elem == 2 else (s % 64 != 32):
+        s += 16
+    return s
+
+
+def _qmax(d: int) -> int:
+    """Pairs per work item at width d: 32, halved while the item's
+    queries pass 32 KiB of shared memory, at least 8 (the kernels'
+    `bucket_scan::qmax_for`, which checks that the two agree)."""
+    stride = _smem_stride(-(-d // 32) * 32 * 2, 2)
+    q = 32
+    while q > 8 and q * stride > 32768:
+        q //= 2
+    return q
+
+
+def _n_items(n: int, n_buckets: int, qmax: int) -> int:
+    """The work list's length: enough items for any probes."""
+    return -(-n // qmax) + min(n_buckets, n)
+
+
+def _sorted_keys(probe: torch.Tensor,
+                 n_buckets: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(keys sorted stably, their positions b*P + j): the flattened
+    probes, n_buckets for a probe outside [0, n_buckets)."""
+    key = probe.reshape(-1).clamp(-1, n_buckets).remainder(n_buckets + 1)
+    return torch.sort(key, stable=True)
+
+
+def bucket_worklist(probe: torch.Tensor, n_buckets: int,
+                    qmax: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (query, probe) pairs of `probe` [B, P] int32 grouped by
+    bucket, on probe's device, with no read back to the host. Returns
+    (pairs [B*P] int64: pair ids b*P + j, by bucket, stable; items [G, 3]
+    int32: (bucket, first position in `pairs`, count), G = `_n_items`).
+    Each item holds one bucket and at most `qmax` pairs; probes outside
+    [0, n_buckets) are listed under bucket n_buckets; items past the last
+    are (n_buckets, B*P, 0). On the card the kernels build the same items
+    from the same sort in one launch (`csrc/bucket_scan.cuh`)."""
+    n = probe.numel()
+    dev = probe.device
+    skey, pairs = _sorted_keys(probe, n_buckets)
+    # bounds[c]: the first position of a key >= c; bounds[n_buckets + 1] = n
+    bounds = torch.searchsorted(
+        skey, torch.arange(n_buckets + 2, device=dev, dtype=skey.dtype),
+        out_int32=True)
+    counts = bounds[1:] - bounds[:-1]                      # [K' + 1]
+    chunks = (counts + (qmax - 1)) // qmax
+    ends = torch.cumsum(chunks, 0, dtype=torch.int32)      # items so far
+    it = torch.arange(_n_items(n, n_buckets, qmax), device=dev,
+                      dtype=torch.int32)
+    grp = torch.searchsorted(ends, it, right=True, out_int32=True)
+    live = grp <= n_buckets
+    grp = grp.clamp(max=n_buckets)
+    k = (it - (ends[grp] - chunks[grp])) * qmax            # pairs before
+    items = torch.stack([grp, torch.where(live, bounds[grp] + k, n),
+                         torch.where(live, counts[grp] - k, 0).clamp(
+                             max=qmax)], 1)
+    return pairs, items.to(torch.int32)
+
+
+def _vec(table: torch.Tensor, elem_bytes: int) -> int:
+    """1 when the kernel may copy the table's rows in 16-byte pieces."""
+    d = table.shape[-1]
+    return int((d * elem_bytes) % 16 == 0 and table.data_ptr() % 16 == 0)
+
+
+def ivf_bucket_dots_ctas_per_sm(d: int) -> int:
+    """Resident CTAs per SM of kernel B4 at width d (on the card)."""
+    from leann_tpu_torch.ops import _cuda
+
+    return _cuda.load("ivf_bucket_dots").leann_ivf_bucket_dots_ctas_per_sm(d)
+
+
+def ivf8_bucket_scores_ctas_per_sm(d: int) -> int:
+    """Resident CTAs per SM of kernel B2 at width d (on the card)."""
+    from leann_tpu_torch.ops import _cuda
+
+    return _cuda.load("ivf8_scan").leann_ivf8_bucket_scores_ctas_per_sm(d)
 
 
 def _check(queries, probe, tables, dtypes):
@@ -115,14 +216,19 @@ def ivf_bucket_dots(
     b, d = queries.shape
     p = probe.shape[1]
     k, cap, _ = bucket_vecs.shape
-    q, pr, vecs = (t.contiguous() for t in (queries, probe, bucket_vecs))
-    w, g = _lanes(vecs, 2)
-    out = torch.empty((p, b, cap), dtype=torch.float32, device=q.device)
+    q, vecs = queries.contiguous(), bucket_vecs.contiguous()
+    qmax = _qmax(d)
+    g = _n_items(b * p, k, qmax)
     with torch.cuda.device(q.device):
+        skey, pairs = _sorted_keys(probe, k)
+        scratch = torch.empty(k + 2 + 3 * g, dtype=torch.int32,
+                              device=q.device)
+        out = torch.empty((p, b, cap), dtype=torch.float32, device=q.device)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.leann_ivf_bucket_dots(
-            q.data_ptr(), pr.data_ptr(), vecs.data_ptr(), out.data_ptr(),
-            b, p, k, cap, d, w, g, stream)
+            q.data_ptr(), skey.data_ptr(), pairs.data_ptr(),
+            scratch.data_ptr(), scratch[k + 2:].data_ptr(), vecs.data_ptr(),
+            out.data_ptr(), b, p, k, cap, d, g, qmax, _vec(vecs, 2), stream)
     _cuda.check(lib, err, "ivf_bucket_dots")
     ivf_bucket_dots.launches += 1
     return out
@@ -224,15 +330,21 @@ def ivf8_bucket_scores(
     lib = _cuda.load("ivf8_scan")
     b = queries.shape[0]
     p = probe.shape[1]
-    ts = [t.contiguous() for t in (queries, probe, payload, scale, nsq, ids,
-                                   cent)]
-    w, g = _lanes(ts[2], 1)
-    out = torch.empty((b, p, cap), dtype=torch.float32, device=queries.device)
-    with torch.cuda.device(queries.device):
-        stream = torch.cuda.current_stream(queries.device).cuda_stream
+    q, pay, *meta = (t.contiguous() for t in (queries, payload, scale, nsq,
+                                              ids, cent))
+    qmax = _qmax(d)
+    g = _n_items(b * p, kp, qmax)
+    with torch.cuda.device(q.device):
+        skey, pairs = _sorted_keys(probe, kp)
+        scratch = torch.empty(kp + 2 + 3 * g, dtype=torch.int32,
+                              device=q.device)
+        out = torch.empty((b, p, cap), dtype=torch.float32, device=q.device)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.leann_ivf8_bucket_scores(
-            *(t.data_ptr() for t in ts), out.data_ptr(), b, p, kp, cap, d,
-            w, g, int(metric == "l2"), stream)
+            q.data_ptr(), skey.data_ptr(), pairs.data_ptr(),
+            scratch.data_ptr(), scratch[kp + 2:].data_ptr(), pay.data_ptr(),
+            *(t.data_ptr() for t in meta), out.data_ptr(), b, p, kp, cap, d,
+            g, qmax, _vec(pay, 1), int(metric == "l2"), stream)
     _cuda.check(lib, err, "ivf8_bucket_scores")
     ivf8_bucket_scores.launches += 1
     return out

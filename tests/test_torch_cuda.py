@@ -14,7 +14,9 @@ cases of the smoke alone, on a card: `python -c "import torch,
 chip_smoke; chip_smoke.phase_kernels(torch, torch.device('cuda'))"`.
 The bucket kernels (B2, B4): -inf positions equal exactly, finite scores
 within 1e-5 x |q| x (largest row norm) (l2: twice that), since their
-plain versions add the same exact products in another order. The row
+plain versions add the same exact products in another order; NaN rows
+exactly at probes outside [0, K); a repeat gives the same bits; the
+same tolerance against their earlier designs (`csrc/*_pairs.cu`). The row
 gather (B5): within 1e-5 x |q| x (largest row norm), for the same
 reason."""
 
@@ -434,6 +436,195 @@ def test_ivf8_kernel_matches_plain(dev, metric, k, cap, d, b, p):
     tol = 1e-5 * float(q.norm(dim=1).max() * row) * (2 if metric == "l2" else 1)
     live = torch.isfinite(ref)
     torch.testing.assert_close(got[live], ref[live], rtol=0, atol=tol)
+
+
+def _bucket_tables(dev, k, cap, d, seed, offset=0):
+    """Random B2 and B4 tables; with `offset`, each table is a view that
+    starts `offset` elements into a larger buffer (not 16-byte aligned)."""
+    g = torch.Generator().manual_seed(seed)
+    pay = torch.randint(-127, 128, (k * cap * d + offset,), generator=g,
+                        dtype=torch.int8)[offset:].view(k, cap, d)
+    vecs = (torch.randn((k * cap * d + offset,), generator=g) * 2).to(
+        torch.bfloat16)[offset:].view(k, cap, d)
+    scale = torch.rand((k, cap), generator=g) * 0.05
+    nsq = torch.rand((k, cap), generator=g) * 100
+    ids = torch.arange(k * cap, dtype=torch.int32).reshape(k, cap)
+    ids[torch.rand((k, cap), generator=g) < 0.2] = -1
+    cent = torch.randn((k, d), generator=g) * 3
+    if offset:   # keep the views' offsets on the card
+        pay = torch.empty(k * cap * d + offset, dtype=torch.int8,
+                          device=dev)[offset:].view(k, cap, d).copy_(pay)
+        vecs = torch.empty(k * cap * d + offset, dtype=torch.bfloat16,
+                           device=dev)[offset:].view(k, cap, d).copy_(vecs)
+    return {"dots": (vecs.to(dev),),
+            "ivf8": tuple(t.to(dev) for t in (pay, scale, nsq, ids, cent))}
+
+
+def _bucket_kernel_check(kind, q, probe, tables, metric="l2"):
+    """One kernel call against its plain version: launches + 1, NaN rows
+    exactly at probes outside [0, K), -inf positions equal, finite scores
+    within 1e-5 x |q| x (largest row norm) (l2: twice that), and a repeat
+    with the same bits. Returns the output."""
+    k = tables[0].shape[0]
+    fn = tbk.ivf_bucket_dots if kind == "dots" else tbk.ivf8_bucket_scores
+    plain = (tbk.ivf_bucket_dots_plain if kind == "dots"
+             else tbk.ivf8_bucket_scores_plain)
+    extra = () if kind == "dots" else (metric,)
+    before = fn.launches
+    got = fn(q, probe, *tables, *extra)
+    again = fn(q, probe, *tables, *extra)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    oor = (probe < 0) | (probe >= k)
+    ref = plain(q, torch.where(oor, 0, probe), *tables, *extra)
+    rows = oor.t() if kind == "dots" else oor        # [P, B] / [B, P]
+    nan = torch.isnan(got)
+    assert torch.equal(nan, rows[..., None].expand_as(got))
+    assert torch.equal(torch.isnan(again), nan)
+    assert torch.equal(got[~nan], again[~nan])       # the same bits
+    got, ref = got[~nan], ref[~rows[..., None].expand_as(ref)]
+    assert torch.equal(torch.isneginf(got), torch.isneginf(ref))
+    assert bool(torch.isfinite(got[~torch.isneginf(got)]).all())
+    if kind == "dots":
+        row = tables[0].float().norm(dim=2).max()
+    else:
+        pay, scale, _, _, cent = tables
+        row = (cent.norm(dim=1)[:, None] + scale * pay.float().norm(dim=2)).max()
+    tol = 1e-5 * float(q.norm(dim=1).max() * row) * (
+        2 if kind == "ivf8" and metric == "l2" else 1)
+    live = torch.isfinite(ref)
+    torch.testing.assert_close(got[live], ref[live], rtol=0, atol=tol)
+    return got
+
+
+@pytest.mark.parametrize("kind", ["dots", "ivf8"])
+@pytest.mark.parametrize("case", ["all_on_one", "half_on_one",
+                                  "duplicates_in_rows"])
+def test_bucket_kernels_hot_buckets(dev, kind, case):
+    """B2 and B4 at a serving batch (B = 2048, P = 8) where every query
+    probes one bucket, where half of them do, and where rows repeat a
+    bucket: a hot bucket is cut into many work items, each read of it
+    serves up to qmax pairs."""
+    k, cap, d = 40, 130, 96 if kind == "ivf8" else 128
+    tables = _bucket_tables(dev, k, cap, d, seed=11)[kind]
+    g = torch.Generator().manual_seed(12)
+    q = (torch.randn((2048, d), generator=g) * 2).to(dev)
+    probe = torch.randint(0, k, (2048, 8), generator=g, dtype=torch.int32)
+    if case == "all_on_one":
+        probe[:, 3] = 7
+    elif case == "half_on_one":
+        probe[::2, 0] = 5
+    else:
+        probe[:, 4:] = probe[:, :1]
+    _bucket_kernel_check(kind, q, probe.to(dev), tables)
+
+
+@pytest.mark.parametrize("kind", ["dots", "ivf8"])
+def test_bucket_kernels_out_of_range_probes(dev, kind):
+    """Probes outside [0, K) (negative and >= K, one whole row of them)
+    give NaN rows exactly there and leave every other row as it was."""
+    k, cap, d = 9, 77, 96
+    tables = _bucket_tables(dev, k, cap, d, seed=13)[kind]
+    g = torch.Generator().manual_seed(14)
+    q = (torch.randn((31, d), generator=g) * 2).to(dev)
+    probe = torch.randint(0, k, (31, 5), generator=g, dtype=torch.int32)
+    probe[3, 1], probe[7, 4], probe[8] = -1, k, k + 5
+    _bucket_kernel_check(kind, q, probe.to(dev), tables)
+
+
+@pytest.mark.parametrize("kind", ["dots", "ivf8"])
+@pytest.mark.parametrize("d,cap,offset", [
+    (20, 33, 0), (24, 50, 0), (96, 77, 0), (128, 130, 0), (768, 40, 0),
+    (96, 77, 3), (128, 50, 1)])
+def test_bucket_kernels_widths_and_alignment(dev, kind, d, cap, offset):
+    """D of 20 and 24 (no 16-byte copies for int8; D % 32 != 0), 96, 128
+    and 768 (several column steps per tile), caps that are not multiples
+    of 16, and table views that are not 16-byte aligned (the kernel takes
+    its single-element copies)."""
+    k = 6
+    tables = _bucket_tables(dev, k, cap, d, seed=d + cap, offset=offset)[kind]
+    assert offset == 0 or tables[0].data_ptr() % 16
+    g = torch.Generator().manual_seed(15)
+    q = (torch.randn((37, d), generator=g) * 2).to(dev)
+    probe = torch.randint(0, k, (37, 4), generator=g, dtype=torch.int32)
+    for metric in (("l2", "ip") if kind == "ivf8" else ("ip",)):
+        _bucket_kernel_check(kind, q, probe.to(dev), tables, metric)
+
+
+@pytest.mark.parametrize("kind", ["dots", "ivf8"])
+def test_bucket_kernels_do_not_synchronize(dev, kind):
+    """A wrapper call (the probes' sort, the work list and the scan) runs
+    under torch.cuda.set_sync_debug_mode("error"): nothing reads back to
+    the host."""
+    tables = _bucket_tables(dev, 20, 64, 96, seed=16)[kind]
+    q = torch.randn((256, 96), device=dev)
+    probe = torch.randint(0, 20, (256, 8), device=dev, dtype=torch.int32)
+    fn = tbk.ivf_bucket_dots if kind == "dots" else tbk.ivf8_bucket_scores
+    extra = () if kind == "dots" else ("l2",)
+    fn(q, probe, *tables, *extra)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn(q, probe, *tables, *extra)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("k,cap,d,b,p", GRID)
+def test_bucket_kernels_match_earlier_design(dev, k, cap, d, b, p):
+    """The bucket-major kernels against their earlier designs (one CTA
+    per (query, probe), `csrc/*_pairs.cu`) on the smoke's grid: within
+    the same tolerance as the plain versions."""
+    from leann_tpu_torch.evals.bucket_scan_cycles import earlier
+
+    q, probe, pay, scale, nsq, ids, cent, vecs = _bucket_case(
+        dev, k, cap, d, b, p, seed=d + cap + 2)
+    tol = 1e-5 * float(q.norm(dim=1).max() * vecs.float().norm(dim=2).max())
+    torch.testing.assert_close(
+        tbk.ivf_bucket_dots(q, probe, vecs),
+        earlier(torch, "dots", (q, probe, vecs), "ip"),
+        rtol=0, atol=tol)
+    args = (q, probe, pay, scale, nsq, ids, cent)
+    row = (cent.norm(dim=1)[:, None] + scale * pay.float().norm(dim=2)).max()
+    got = tbk.ivf8_bucket_scores(*args, "l2")
+    old = earlier(torch, "ivf8", args, "l2")
+    assert torch.equal(torch.isneginf(got), torch.isneginf(old))
+    live = torch.isfinite(old)
+    torch.testing.assert_close(
+        got[live], old[live], rtol=0,
+        atol=2e-5 * float(q.norm(dim=1).max() * row))
+
+
+@pytest.mark.parametrize("k,b,p,qmax", [(7479, 2048, 8, 32), (40, 2048, 8, 32),
+                                        (9, 31, 5, 16), (3, 1, 1, 8)])
+def test_bucket_items_on_the_card_equal_worklist(dev, k, b, p, qmax):
+    """The work list's items built on the card in one launch equal
+    `bucket_worklist`'s, with a hot bucket and out-of-range probes."""
+    import ctypes
+
+    from leann_tpu_torch.ops import _cuda
+
+    g = torch.Generator().manual_seed(k + b)
+    probe = torch.randint(0, k, (b, p), generator=g, dtype=torch.int32)
+    probe[: b // 2, 0] = k - 1
+    probe[0, -1], probe[-1, 0] = -1, k + 2
+    probe = probe.to(dev)
+    pairs, want = tbk.bucket_worklist(probe, k, qmax)
+    skey, pairs2 = tbk._sorted_keys(probe, k)
+    assert torch.equal(pairs, pairs2)
+    n_items = tbk._n_items(b * p, k, qmax)
+    scratch = torch.empty(k + 2 + 3 * n_items, dtype=torch.int32, device=dev)
+    for name in ("ivf_bucket_dots", "ivf8_scan"):
+        lib = _cuda.load(name)
+        scratch.fill_(-9)
+        err = lib.leann_bucket_items(
+            skey.data_ptr(), b * p, k, qmax, n_items, scratch.data_ptr(),
+            scratch[k + 2:].data_ptr(),
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        _cuda.check(lib, err, "leann_bucket_items")
+        torch.cuda.synchronize()
+        assert torch.equal(scratch[k + 2:].view(n_items, 3), want)
 
 
 def test_kmeans_is_deterministic_on_the_card(dev):
