@@ -24,11 +24,14 @@
 // kept one 16-byte load per thread in flight.
 //
 // Design: the bucket-major scan of `bucket_scan.cuh`. One CTA per item of
-// the work list (one bucket, up to 32 of the queries that probe it)
-// streams the bucket's payload and its scale / nsq / ids once through a
-// ring of shared-memory tiles filled by cp.async; each warp converts its
-// int8 A fragments to bf16 once per tile (exact) and scores every query
-// of the item with mma.sync m16n8k16 (float32 sums).
+// the work list (one bucket, up to 32 of the queries that probe it): a
+// producer warp streams the bucket's payload and its scale / nsq / ids
+// once through a ring of shared-memory tiles with bulk copies
+// (cp.async.bulk on mbarriers); each of 8 consumer warps widens its int8 A
+// fragments to fp16 once per tile (exact: a byte permute and one
+// subtraction) and scores every query of the item, staged as bf16(q)
+// times a power of two in fp16, with mma.sync m16n8k16 (float32 sums;
+// the power of two is undone after the sum).
 
 #include "bucket_scan.cuh"
 
@@ -40,7 +43,7 @@ extern "C" const char* leann_cuda_error_string(int err) {
 // sorted stably; pairs [B * P] int64: their positions (b * P + j); start
 // [K + 2] and items [n_items, 3] int32 scratch, n_items = ceil(B * P /
 // qmax) + min(K, B * P); qmax must equal bucket_scan::qmax_for(D); vec = 1
-// takes 16-byte cp.async (needs D % 16 == 0 and a 16-byte aligned
+// allows bulk copies (needs D % 16 == 0 and a 16-byte aligned
 // payload), vec = 0 single bytes. Launches the items kernel, then the
 // scan, on `stream`.
 extern "C" int leann_ivf8_bucket_scores(

@@ -20,9 +20,10 @@
 // and kept one 16-byte load per thread in flight.
 //
 // Design: the bucket-major scan of `bucket_scan.cuh`. One CTA per item of
-// the work list (one bucket, up to 32 of the queries that probe it) streams
-// the bucket's rows once through a ring of shared-memory tiles filled by
-// cp.async, and scores every query of the item from the same tile with
+// the work list (one bucket, up to 32 of the queries that probe it): a
+// producer warp streams the bucket's rows once through a ring of
+// shared-memory tiles with bulk copies (cp.async.bulk on mbarriers), and 8
+// consumer warps score every query of the item from the same tile with
 // mma.sync m16n8k16 (bf16 in, float32 sums).
 
 #include "bucket_scan.cuh"
@@ -35,7 +36,7 @@ extern "C" const char* leann_cuda_error_string(int err) {
 // sorted stably; pairs [B * P] int64: their positions (b * P + j); start
 // [K + 2] and items [n_items, 3] int32 scratch, n_items = ceil(B * P /
 // qmax) + min(K, B * P); qmax must equal bucket_scan::qmax_for(D); vec = 1
-// takes 16-byte cp.async (needs D * 2 % 16 == 0 and a 16-byte aligned
+// allows bulk copies (needs D * 2 % 16 == 0 and a 16-byte aligned
 // table), vec = 0 single elements. Launches the items kernel, then the
 // scan, on `stream`.
 extern "C" int leann_ivf_bucket_dots(const float* q, const int32_t* skey,

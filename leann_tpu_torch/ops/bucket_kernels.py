@@ -142,7 +142,8 @@ def bucket_worklist(probe: torch.Tensor, n_buckets: int,
 
 
 def _vec(table: torch.Tensor, elem_bytes: int) -> int:
-    """1 when the kernel may copy the table's rows in 16-byte pieces."""
+    """1 when the kernel may copy the table by bulk copies (rows of a
+    multiple of 16 bytes, a 16-byte aligned table)."""
     d = table.shape[-1]
     return int((d * elem_bytes) % 16 == 0 and table.data_ptr() % 16 == 0)
 
