@@ -6,8 +6,9 @@ Drives `leann_tpu_torch`'s main paths through the entry points a user
 calls (Vamana build -> fused graph search at D % 128 == 0; Vamana build
 -> PQ graph search at 96-d; IVF build -> bf16 bucket search; the
 residual-int8 IVF serving tier and the IVF-PQ tier at 10M x 96; the
-row-gather roofline; the BERT encoder at bert-base widths and `entry()`),
-builds the CUDA kernels from
+row-gather roofline; the BERT encoder at bert-base widths and `entry()`;
+pruned recompute, BASELINE config 3 at 100k passages), builds the CUDA
+kernels from
 `leann_tpu_torch/csrc/` (one nvcc per source, all started together), and
 holds each against its plain PyTorch version. Phases, one JSON line each
 on stdout:
@@ -104,6 +105,22 @@ on stdout:
            these vectors (backend hnsw) and searched with 256 encoded
            passage texts: self-hit@1 and recall@10 beside the fake
            embedder's; then `entry()` on the card against its CPU run
+  recompute
+           BASELINE config 3 at `evals/recompute_scale.py`'s size:
+           100,000 passages of its template embedded by bert-base
+           (random weights, T=48) through LocalEmbedding at batch 512;
+           StreamingIndexBuilder (hnsw, ip, R=32, L=48, two passes,
+           is_recompute: the token sidecar) with build s split into
+           graph / tokens / BM25; the stored-vector search (B1) on 256
+           stored rows at beams 32 and 64; prune; GraphRecomputeSearcher
+           at the same beams: recall@10 against the exact oracle on the
+           stored vectors, wall s, device ms, QPS, hops, encoder rows per
+           query, dedup hit rate, the encoder's device ms by CUDA events
+           around each forward, a profile of one batch; dedup on / off
+           and 8-hop segments / one pass on 16 queries; RecomputeSearcher
+           (brute force) under a one-facet filter (~2.7k passages); bytes
+           of the stored vectors against tokens + graph; peak memory. No
+           kernel but B1 may launch
   kernels_main
            each kernel vs its plain version at every shape the main
            paths launched it with: fused_beam_search at rag build (D=768,
@@ -121,8 +138,8 @@ on stdout:
            + torch.bmm in bf16, both inside the timed window
 
 The counts of kernel launches are set to 0 just before each main-path
-phase (rag, sift, deep, ivf, ivf8, gather, ivfpq, rag_ivf, encode) and
-read just after it. Any failure exits
+phase (rag, sift, deep, ivf, ivf8, gather, ivfpq, rag_ivf, encode,
+recompute) and read just after it. Any failure exits
 non-zero with no `ok` line. The last lines are the kernel table, the
 card's `nvidia-smi` name and power limit, and {"ok": true, "device": ...}.
 """
@@ -180,6 +197,19 @@ IVFPQ_1M_MIN_RECALL = 0.861
 # 1.0 and recall@10 0.9992 at complexity 1024
 ENCODE_MIN_HIT1 = 0.99
 ENCODE_MIN_RECALL = 0.979
+# BASELINE config 3 (pruned recompute) at its eval's default size
+# (`evals/recompute_scale.py:31-58`): 100k passages (1M cut for the
+# smoke's time), bert-base at T=48, R=32, L=48, two passes, 256 queries,
+# beams 32 and 64, visited pool 128. Config 3's bar is recall@10 0.95;
+# the first card run gave 0.8926 / 0.9266 at beams 32 / 64, with the
+# stored-vector search on the same graph at 0.9176 / 0.9309: the graph
+# and the random encoder's nearly tied neighbourhoods set the level, not
+# the recompute. The phase holds the better beam to that run less 0.02.
+RECOMPUTE_N = 100_000
+RECOMPUTE_T = 48
+RECOMPUTE_BEAMS = (32, 64)
+RECOMPUTE_MIN_RECALL = 0.906
+RECOMPUTE_AGREE = 1e-3     # dedup on / off, segments / one pass
 
 FUSED = dict(
     name="fused_beam_search",
@@ -296,11 +326,16 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps, out
 
 
+# substrings of the cuBLAS / CUTLASS matrix-product kernels' names
+GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
+
+
 def profile(torch, fn, top=6):
     """Device time of one fn() by torch.profiler: busy ms (the sum of
     the kernels' own device time), wall ms of the profiled call ending in
     a synchronize (profiling adds host overhead, so the idle share is an
-    upper bound), and the `top` kernels by device ms."""
+    upper bound), the matrix products' ms (`GEMM_NAMES`) and the `top`
+    kernels by device ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -318,8 +353,10 @@ def profile(torch, fn, top=6):
             key = ev.key[:60]
             ms[key] = ms.get(key, 0.0) + ev.device_time_total / 1e3
     busy = sum(ms.values())
+    gemm = sum(v for k, v in ms.items()
+               if any(w in k.lower() for w in GEMM_NAMES))
     return {"busy_ms": busy, "wall_ms": wall_ms,
-            "idle_share": max(0.0, 1.0 - busy / wall_ms),
+            "idle_share": max(0.0, 1.0 - busy / wall_ms), "gemm_ms": gemm,
             "kernels_ms": dict(sorted(ms.items(), key=lambda kv: -kv[1])[:top])}
 
 
@@ -1602,6 +1639,253 @@ def phase_encode(torch, dev, n_docs, counter, fake_row):
         raise AssertionError(f"encode: entry() {entry_row}")
 
 
+def recompute_texts(n):
+    """`evals/recompute_scale.py:76-80`'s passages."""
+    return [f"passage {i} about subject {i % 911} topic {i % 101} "
+            f"facet {i % 37} keyword{i % 7} detail {i}" for i in range(n)]
+
+
+class TemplateProvider:
+    """What `RecomputeSearcher` asks of a provider, over LocalEmbedding
+    (no document template)."""
+
+    def __init__(self, emb):
+        self.emb = emb
+
+    def embed_with_template(self, texts, template):
+        if template is not None:
+            raise ValueError("no document template in this phase")
+        return self.emb.embed(texts)
+
+
+def encoder_split(torch, engine, q, beam):
+    """One search with CUDA events around each encoder forward: (device
+    ms of the forwards, device ms of the whole search, forwards)."""
+    from leann_tpu_torch.ops import beam as beam_mod
+
+    forward, marks = beam_mod.bert_forward, []
+
+    def timed(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = forward(*args)
+        end.record()
+        marks.append((start, end))
+        return out
+
+    beam_mod.bert_forward = timed
+    try:
+        total, _ = cuda_ms(lambda: engine.search(q, k=10, beam_width=beam), 1)
+    finally:
+        beam_mod.bert_forward = forward
+    return sum(a.elapsed_time(b) for a, b in marks), total, len(marks)
+
+
+def agreement(a, b):
+    """Two (ids, scores) of k=11: rows whose 10th and 11th scores (in a)
+    are more than RECOMPUTE_AGREE apart, how many of them hold equal
+    top-10 id sets, and the largest score difference over the top 10."""
+    (ia, sa), (ib, sb) = a, b
+    clear = (sa[:, 9] - sa[:, 10]) > RECOMPUTE_AGREE
+    same = [set(x[:10].tolist()) == set(y[:10].tolist())
+            for x, y in zip(ia, ib)]
+    return {"rows": len(ia), "rows_clear": int(clear.sum()),
+            "clear_rows_equal_as_sets": int(np.sum(np.array(same) & clear)),
+            "rows_equal_as_sets": int(np.sum(same)),
+            "max_score_diff": float(np.abs(sa[:, :10] - sb[:, :10]).max())}
+
+
+def phase_recompute(torch, dev, n, counter):
+    """BASELINE config 3: a pruned index searched by re-embedding the
+    frontier with the encoder inside the traversal. bert-base widths
+    (seeded random weights, hash tokenizer) at T=48 through
+    LocalEmbedding; StreamingIndexBuilder with is_recompute (B1 runs the
+    Vamana build at D=768) writes the token sidecar; the stored-vector
+    search on the same graph (IndexSearcher -> FusedBeamEngine, B1);
+    prune; GraphRecomputeSearcher on 256 stored rows at beams 32 and 64
+    against the exact oracle on the stored vectors; dedup on / off and
+    segments / one pass on 16 queries; RecomputeSearcher (brute force)
+    under a one-facet filter."""
+    from leann_tpu_torch.embed import LocalEmbedding
+    from leann_tpu_torch.index import (
+        GraphRecomputeSearcher, IndexSearcher, MetadataFilter,
+        RecomputeSearcher, SearchOptions, StreamingIndexBuilder,
+    )
+    from leann_tpu_torch.models.bert import BertConfig, BertEncoder
+    from leann_tpu_torch.ops.distance import exact_topk
+    from leann_tpu_torch.store.embeddings import embeddings_path, prune_embeddings
+    from leann_tpu_torch.store.graphfile import graph_path
+    from leann_tpu_torch.store.meta import IndexMeta, meta_path
+    from leann_tpu_torch.store.passages import Passage
+    from leann_tpu_torch.store.tokens import tokens_path
+    from leann_tpu_torch.utils import METRICS
+
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    texts = recompute_texts(n)
+    enc = BertEncoder(BertConfig(), max_length=RECOMPUTE_T, seed=0, device=dev)
+    t0 = time.perf_counter()
+    vecs = LocalEmbedding(encoder=enc, batch_size=512).embed(texts)
+    embed_s = time.perf_counter() - t0
+    q_ids = np.random.default_rng(7).integers(0, n, 256)
+    queries = vecs[q_ids]
+    oracle_sc, oracle = exact_topk(queries, vecs, 11, metric="ip",
+                                   device=dev)
+    gap = oracle_sc[:, 9] - oracle_sc[:, 10]      # 10th less 11th score
+    sample = vecs[np.random.default_rng(8).choice(n, 512, replace=False)]
+    off = (sample @ sample.T)[~np.eye(512, dtype=bool)]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        base = os.path.join(tmp, "indexes", "recompute", "documents.leann")
+        builder = StreamingIndexBuilder(
+            base, dim=enc.dimensions, backend="hnsw", metric="ip",
+            embedding_model="bert-base (random weights, seed 0)",
+            embedding_mode="local", is_recompute=True,
+            tokenizer_encoder=enc, device=dev)
+        for i, (t, v) in enumerate(zip(texts, vecs)):
+            builder.add_passage(Passage(id=f"p{i}", text=t,
+                                        metadata={"facet": i % 37}), v)
+        METRICS.reset()
+        c0 = counter()
+        t0 = time.perf_counter()
+        builder.build(graph_degree=32, complexity=48)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        launches_build = counter() - c0
+        spans = METRICS.snapshot()
+        split = {k: spans[f"span.build.{k}.seconds"]["sum"]
+                 for k in ("vamana", "tokens", "bm25")}
+
+        # the stored-vector search on the same graph, before the prune
+        searcher = IndexSearcher.load(base, device=dev)
+        stored_engine = type(searcher.backend.engine).__name__
+        c0 = counter()
+        stored = {}
+        for beam in RECOMPUTE_BEAMS:
+            res = searcher.search(queries, SearchOptions(top_k=10,
+                                                         complexity=beam))
+            stored[beam] = recall_at([[int(h.id[1:]) for h in r]
+                                      + [-1] * (10 - len(r)) for r in res],
+                                     oracle)
+        launches_search = counter() - c0
+        del searcher
+
+        n_tok = n * RECOMPUTE_T * 4 + n * 4          # token ids + lengths
+        n_graph = n * 32 * 4
+        sizes = {"stored_f32": os.path.getsize(embeddings_path(base)),
+                 "tokens_and_lengths": n_tok, "graph": n_graph,
+                 "tokens_file": os.path.getsize(tokens_path(base)),
+                 "graph_file": os.path.getsize(graph_path(base))}
+        sizes["stored_over_pruned"] = sizes["stored_f32"] / (n_tok + n_graph)
+        freed = prune_embeddings(base)
+        meta = IndexMeta.load(meta_path(base))
+        meta.is_pruned = True
+        meta.save(meta_path(base))
+
+        t0 = time.perf_counter()
+        graph = GraphRecomputeSearcher(base, enc, device=dev)
+        torch.cuda.synchronize()
+        engine_s = time.perf_counter() - t0
+        engine = graph.engine
+        top = graph.search(queries[0], top_k=10, complexity=RECOMPUTE_BEAMS[0])
+        api_self_hit = bool(top) and top[0].id == f"p{q_ids[0]}"
+
+        # dedup off / on and segments / one pass on the first 16 queries
+        q16 = queries[:16]
+        runs, rows_per_query = {}, {}
+        for label, knob, value in (("dedup_off", "LEANN_RECOMPUTE_DEDUP", "0"),
+                                   ("dedup_on", "LEANN_RECOMPUTE_DEDUP", "1"),
+                                   ("segment_8", "LEANN_RECOMPUTE_SEGMENT", "8")):
+            with env_var(knob, value):
+                runs[label] = engine.search(q16, k=11,
+                                            beam_width=RECOMPUTE_BEAMS[0])
+            rows_per_query[label] = engine.last_stats["encoded_rows"] / 16
+        dedup_ab = agreement(runs["dedup_on"], runs["dedup_off"])
+        segment_ab = agreement(runs["dedup_on"], runs["segment_8"])
+        dedup_ab["encoder_rows_per_query"] = rows_per_query
+
+        rows = {}
+        for beam in RECOMPUTE_BEAMS:
+            t0 = time.perf_counter()
+            ms, (idx, _) = cuda_ms(
+                lambda: engine.search(queries, k=10, beam_width=beam), 1)
+            wall = time.perf_counter() - t0
+            st = engine.last_stats
+            rows[beam] = {
+                "recall10": recall_at(idx, oracle),
+                "stored_recall10": stored[beam], "wall_s": wall,
+                "device_ms": ms, "qps": len(queries) / wall,
+                "hops": st["hops"],
+                "encoder_rows_per_query": st["encoded_rows"] / len(queries),
+                "misses_per_query": st["misses"] / len(queries),
+                "dedup_hit_rate": 1.0 - st["misses"] / st["slots"],
+                "self_hit1": float(np.mean(idx[:, 0] == q_ids))}
+        enc_ms, search_ms, forwards = encoder_split(
+            torch, engine, queries, RECOMPUTE_BEAMS[0])
+        prof = profile(torch, lambda: engine.search(
+            queries, k=10, beam_width=RECOMPUTE_BEAMS[0]), top=8)
+
+        # brute force under a one-facet filter; the query is a kept
+        # passage's own stored vector
+        facet = int(q_ids[0] % 37)
+        brute = RecomputeSearcher(base, TemplateProvider(
+            LocalEmbedding(encoder=enc)), device=dev)
+        t0 = time.perf_counter()
+        res = brute.search(vecs[q_ids[0]], top_k=10,
+                           filter=MetadataFilter.parse(f"facet={facet}"))
+        brute_s = time.perf_counter() - t0
+        brute_row = {"facet": facet, "kept": len(range(facet, n, 37)),
+                     "seconds": brute_s,
+                     "self_hit": bool(res) and res[0].id == f"p{q_ids[0]}",
+                     "all_in_facet": all(r.metadata["facet"] == facet
+                                         for r in res)}
+
+    best = max(r["recall10"] for r in rows.values())
+    emit({"phase": "recompute", "n": n, "t": RECOMPUTE_T,
+          "encoder": {"hidden": enc.config.hidden_size,
+                      "layers": enc.config.num_layers,
+                      "heads": enc.config.num_heads,
+                      "intermediate": enc.config.intermediate_size,
+                      "vocab": enc.config.vocab_size},
+          "graph": {"r": 32, "l": 48, "passes": 2},
+          "embed_s": embed_s, "texts_per_s": n / embed_s,
+          "build_s": build_s, "build_split_s": split,
+          "launches_build": launches_build,
+          "stored_engine": stored_engine,
+          "launches_stored_search": launches_search,
+          "bytes": sizes, "embeddings_freed": freed,
+          "engine_init_s": engine_s,
+          "seed_pool": int(engine.seed_ids.numel()),
+          "api_self_hit": api_self_hit, "beams": rows,
+          "oracle_gap_10_11": {"median": float(np.median(gap)),
+                               "share_below_1e-3": float(np.mean(gap < 1e-3))},
+          "corpus_cos_mean": float(off.mean()),
+          "corpus_cos_max": float(off.max()),
+          "encoder_split_beam32": {"encoder_ms": enc_ms,
+                                   "search_ms": search_ms,
+                                   "forwards": forwards,
+                                   "traversal_ms": search_ms - enc_ms},
+          "profile_beam32": prof, "dedup_ab": dedup_ab,
+          "segment_ab": segment_ab, "brute_force": brute_row,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "phase_s": time.perf_counter() - t_phase, "gpu": smi()})
+    if not np.isfinite(vecs).all() or vecs.shape != (n, enc.dimensions):
+        raise AssertionError("recompute: embeddings not finite or misshapen")
+    if best < RECOMPUTE_MIN_RECALL:
+        raise AssertionError(f"recompute: recall@10 {best} at the better beam")
+    for label, ab in (("dedup", dedup_ab), ("segment", segment_ab)):
+        if (ab["clear_rows_equal_as_sets"] != ab["rows_clear"]
+                or ab["max_score_diff"] > RECOMPUTE_AGREE):
+            raise AssertionError(f"recompute: {label} on / off {ab}")
+    if not (brute_row["self_hit"] and brute_row["all_in_facet"]):
+        raise AssertionError(f"recompute: brute-force self-hit {brute_row}")
+    if launches_build <= 0 or launches_search <= 0:
+        raise AssertionError("recompute: the fused kernel was not launched "
+                             f"(build {launches_build}, stored search "
+                             f"{launches_search})")
+
+
 def phase_kernels_main(torch, rag, sift, deep, ivf, ivf8, gather):
     """Each kernel against its plain version at the shapes the main paths
     launched it with. The build cases take the builder's final-pass
@@ -1705,10 +1989,11 @@ def main() -> int:
                 GATHER["name"]: gather_score}
     launches = dict.fromkeys(wrappers, 0)
 
-    def drive(phase, kernel, n, *extra):
+    def drive(phase, kernel, n, *extra, only=False):
         """One main-path phase, every count set to 0 just before it and
         read just after; the phase's kernel must have launched (with
-        kernel None, no kernel may launch). `extra` goes to the phase."""
+        kernel None, no kernel may launch; with `only`, no other kernel
+        may). `extra` goes to the phase."""
         for w in wrappers.values():
             w.launches = 0
         count = ((lambda: sum(w.launches for w in wrappers.values()))
@@ -1720,6 +2005,9 @@ def main() -> int:
             raise AssertionError(f"{phase.__name__}: a kernel launched")
         if kernel is not None and got[kernel] <= 0:
             raise AssertionError(f"{phase.__name__}: {kernel} never launched")
+        if only and any(v for k, v in got.items() if k != kernel):
+            raise AssertionError(f"{phase.__name__}: a kernel other than "
+                                 f"{kernel} launched")
         for k in got:
             launches[k] += got[k]
         return out
@@ -1743,6 +2031,7 @@ def main() -> int:
     del ivf_data, ivf8_data
     drive(phase_rag_ivf, None, RAG_N)
     drive(phase_encode, FUSED["name"], RAG_N, rag[3])
+    drive(phase_recompute, FUSED["name"], RECOMPUTE_N, only=True)
     main_rows, pq_main, dots_main, ivf8_main, gather_main = phase_kernels_main(
         torch, rag, sift, deep, ivf, ivf8, gather)
 

@@ -10,7 +10,8 @@ stream lengths.
 The port builds `flat`, `vamana` (`hnsw`, `diskann`) and `ivf` (k-means
 on the device, then, with LEANN_IVF_CALIBRATE unset or not "0" and at
 least 1000 rows, the calibrated nprobe in `backend_kwargs`).
-Recompute-ready token sidecars raise until their slice lands.
+With `is_recompute` and a `tokenizer_encoder`, the build also writes the
+token sidecar (`store/tokens.py`) that pruned-index recompute reads.
 """
 
 from __future__ import annotations
@@ -71,10 +72,6 @@ class StreamingIndexBuilder:
         self.build_bm25 = build_bm25
         self.tokenizer_encoder = tokenizer_encoder
         self.files_done = 0
-        if is_recompute and tokenizer_encoder is not None:
-            raise NotImplementedError(
-                "recompute token sidecars are not ported to leann_tpu_torch "
-                "yet (ROADMAP: Queue A 7-8, BERT and pruned recompute)")
 
         os.makedirs(os.path.dirname(base) or ".", exist_ok=True)
         if resume and os.path.exists(ckpt_path(base)):
@@ -182,7 +179,7 @@ class StreamingIndexBuilder:
             }
 
         texts: Optional[List[str]] = None
-        if self.build_bm25:
+        if self.build_bm25 or (self.is_recompute and self.tokenizer_encoder):
             store = PassageStore(self.base)
             pos = {pid: i for i, pid in enumerate(self._ids)}
             texts = [""] * len(self._ids)
@@ -194,6 +191,15 @@ class StreamingIndexBuilder:
         if self.build_bm25 and texts:
             with span("build.bm25", docs=len(texts)):
                 Bm25Scorer.build(texts).save(bm25_path(self.base))
+
+        # Recompute-ready indexes persist pre-tokenized passages so that
+        # pruned-index traversal can re-embed frontier nodes on the device.
+        if self.is_recompute and self.tokenizer_encoder is not None and texts:
+            from leann_tpu_torch.store.tokens import save_tokens
+
+            with span("build.tokens", docs=len(texts)):
+                tok, mask = self.tokenizer_encoder.tokenize_corpus(texts)
+                save_tokens(self.base, tok, mask)
 
         meta = IndexMeta(
             backend_name=self.backend,

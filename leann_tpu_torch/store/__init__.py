@@ -9,6 +9,7 @@
   <base>.bm25.npz            persisted BM25 postings
   <base>.pq.npz              PQ codebooks and codes (store/pqfile.py)
   <base>.ivf.npz             IVF k-means centers and assignment (store/ivffile.py)
+  <base>.tokens.npz          token ids and lengths for pruned recompute (store/tokens.py)
 """
 
 from leann_tpu_torch.store.passages import Passage, PassageStore, PassageStoreWriter

@@ -9,6 +9,7 @@ uploaded to device memory block-by-block.
 from __future__ import annotations
 
 import os
+from typing import Optional
 
 import numpy as np
 
@@ -76,3 +77,14 @@ class EmbeddingsStore:
     @staticmethod
     def exists(base: str) -> bool:
         return os.path.exists(embeddings_path(base))
+
+
+def prune_embeddings(base: str) -> Optional[int]:
+    """Delete the embeddings file (LEANN pruning; reference
+    `src/index/embeddings.rs:162-168`). Returns bytes freed or None."""
+    path = embeddings_path(base)
+    if not os.path.exists(path):
+        return None
+    size = os.path.getsize(path)
+    os.remove(path)
+    return size

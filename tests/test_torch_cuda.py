@@ -18,7 +18,9 @@ plain versions add the same exact products in another order; NaN rows
 exactly at probes outside [0, K); a repeat gives the same bits; the
 same tolerance against their earlier designs (`csrc/*_pairs.cu`). The row
 gather (B5): within 1e-5 x |q| x (largest row norm), for the same
-reason."""
+reason. The recompute engine (no kernel of its own; the encoder's
+products are library calls) on the card against the CPU and with its
+dedup cache on against off: the tolerances in each test's docstring."""
 
 import numpy as np
 import pytest
@@ -750,3 +752,75 @@ def test_bert_forward_on_cuda_matches_cpu(dev):
         a, b = gpu.embed(texts, batch_size=8), cpu.embed(texts, batch_size=8)
         np.testing.assert_allclose(a, b, rtol=0, atol=atol)
         assert ((a * b).sum(1) > 0.999).all()
+
+
+@pytest.fixture(scope="module")
+def recompute_setup():
+    """The tiny recompute setup of `tests/test_torch_recompute.py`, with
+    a seed pool of 32 so the cache misses."""
+    from leann_tpu_torch.models import bert
+
+    texts = [f"document {i} topic {i % 13} flavor {i % 7}" for i in range(240)]
+    enc = bert.BertEncoder(config=bert.BertConfig.tiny(), device="cpu")
+    vecs = enc.embed(texts)
+    tok, mask = enc.tokenize_corpus(texts, max_length=16)
+    adj, medoid = build_vamana(vecs, graph_degree=12, complexity=24,
+                               metric="ip", wave_size=64, device="cpu")
+    return tok, mask, adj, medoid, vecs[[5, 50, 150, 230]]
+
+
+def _recompute_engine(setup, dtype, device):
+    from leann_tpu_torch.models import bert
+    from leann_tpu_torch.ops.beam import RecomputeBeamEngine
+
+    tok, mask, adj, medoid, _ = setup
+    enc = bert.BertEncoder(config=bert.BertConfig.tiny(), compute_dtype=dtype,
+                           device=device)
+    return RecomputeBeamEngine(tok, mask, adj, medoid, enc, device=device)
+
+
+@pytest.mark.parametrize("dtype,atol", [("float32", 1e-4), ("bfloat16", 4e-3)])
+def test_recompute_engine_on_cuda_matches_cpu(dev, recompute_setup,
+                                              monkeypatch, dtype, atol):
+    """The recompute engine on the card against the CPU: float32 ids
+    equal and scores within 1e-4; bf16 (products rounded to bf16 in
+    another order on each device) each query's own row first, the top-5
+    equal as sets where the 5th and 6th scores are more than 4e-3 apart,
+    and the sorted scores within 4e-3."""
+    monkeypatch.setenv("LEANN_RECOMPUTE_SEEDS", "32")
+    q = recompute_setup[-1]
+    gi, gs = _recompute_engine(recompute_setup, dtype, dev).search(
+        q, k=6, beam_width=24)
+    ci, cs = _recompute_engine(recompute_setup, dtype, "cpu").search(
+        q, k=6, beam_width=24)
+    assert gi[:, 0].tolist() == ci[:, 0].tolist() == [5, 50, 150, 230]
+    if dtype == "float32":
+        np.testing.assert_array_equal(gi, ci)
+    clear = (cs[:, 4] - cs[:, 5]) > atol
+    for a, b, c in zip(gi, ci, clear):
+        assert not c or set(a[:5].tolist()) == set(b[:5].tolist())
+    np.testing.assert_allclose(gs, cs, rtol=0, atol=atol)
+
+
+def test_recompute_dedup_on_cuda_matches_uncached(dev, recompute_setup,
+                                                  monkeypatch):
+    """Dedup on against off on the card (bf16): the same rows encoded in
+    other batches may differ in their low bits, so the top-5 are equal as
+    sets where the 5th and 6th scores are more than 1e-3 apart and the
+    scores within 1e-3; segments of 4 hops equal one pass exactly."""
+    monkeypatch.setenv("LEANN_RECOMPUTE_SEEDS", "32")
+    eng = _recompute_engine(recompute_setup, "bfloat16", dev)
+    q = recompute_setup[-1]
+    out = {}
+    for dedup, seg in (("0", "0"), ("1", "0"), ("1", "4")):
+        monkeypatch.setenv("LEANN_RECOMPUTE_DEDUP", dedup)
+        monkeypatch.setenv("LEANN_RECOMPUTE_SEGMENT", seg)
+        out[dedup, seg] = eng.search(q, k=6, beam_width=24)
+        assert eng.last_stats["hops"] > 0
+    (ui, us), (ci, cs) = out["0", "0"], out["1", "0"]
+    clear = (us[:, 4] - us[:, 5]) > 1e-3
+    for a, b, c in zip(ci, ui, clear):
+        assert not c or set(a[:5].tolist()) == set(b[:5].tolist())
+    np.testing.assert_allclose(cs, us, rtol=0, atol=1e-3)
+    for a, b in zip(out["1", "0"], out["1", "4"]):
+        np.testing.assert_array_equal(a, b)

@@ -179,6 +179,20 @@ def test_port_imports_no_jax_and_no_reference(tmp_path):
             base + ".ckpt/config.json"))
         fn, args = entry(device="cpu")
         assert fn(*args)[0].shape == (16, 10)
+        from leann_tpu_torch.index import (
+            GraphRecomputeSearcher, RecomputeSearcher)
+        from leann_tpu_torch.ops.beam import (
+            RecomputeBeamEngine, beam_search_recompute_batch,
+            beam_search_recompute_segmented)
+        from leann_tpu_torch.store import tokens
+        from leann_tpu_torch.store.embeddings import prune_embeddings
+        enc = bert.BertEncoder(device="cpu")
+        tok, mask = enc.tokenize_corpus(texts, max_length=8)
+        tokens.save_tokens(base, tok, mask)
+        eng = RecomputeBeamEngine(*tokens.load_tokens(base),
+                                  np.zeros((200, 8), np.int32), 0, enc,
+                                  device="cpu")
+        assert eng.search(enc.embed(texts[:1]), k=3)[0].shape == (1, 3)
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m.startswith("jaxlib") or m == "leann_tpu"
