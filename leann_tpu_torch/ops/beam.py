@@ -1,12 +1,14 @@
 """Frontier-batched best-first beam search over a fixed-degree graph
-(port of the stored-vector half of `leann_tpu/ops/beam.py`).
+(port of `leann_tpu/ops/beam.py`: stored-vector and recompute modes).
 
 A batch of queries advances in lockstep. Each hop:
 
   1. every query picks its E best not-yet-expanded beam entries
   2. those nodes' fixed-degree neighbour rows are gathered      [B, E*R]
   3. candidates are scored by a pluggable expand function (row gather
-     against the f32 corpus, or the int8/bf16 inline blocks)
+     against the f32 corpus, the int8/bf16 inline blocks, or, in
+     recompute mode, the BERT encoder re-embedding the candidates'
+     stored tokens inside the loop)
   4. candidates are deduped (in-beam check + hashed visited table) and
      merged into the beam by a stable descending sort
 
@@ -18,12 +20,14 @@ an unexpanded live entry or at max_iters.
 from __future__ import annotations
 
 import os
-from typing import Callable, Optional, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from leann_tpu_torch.device import DeviceLike, free_device_bytes, resolve_device
+from leann_tpu_torch.models.bert import _bucket_batch, bert_forward
+from leann_tpu_torch.ops.distance import topk_stable
 
 NEG_INF = float("-inf")
 HASH_MULT = 2654435761  # Knuth multiplicative hash (uint32)
@@ -48,8 +52,7 @@ def _beam_search_core(
     r: int,                    # graph degree (candidates per expansion)
     entry: torch.Tensor,       # [] / [S] / [B, S] entry node ids
     exclude: torch.Tensor,     # [B] id never admitted (-1 = none)
-    expand_fn: Callable[[torch.Tensor, torch.Tensor],
-                        Tuple[torch.Tensor, torch.Tensor]],
+    expand_fn: Callable[..., Tuple],
     entry_score_fn: Optional[Callable[[torch.Tensor, torch.Tensor],
                                       torch.Tensor]],
     n_sentinel: int,
@@ -59,12 +62,28 @@ def _beam_search_core(
     expansions: int = 1,
     track_visited: int = 0,
     entry_scores: Optional[torch.Tensor] = None,  # [B, S] precomputed
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    iter_budget: Optional[int] = None,
+    init_state: Optional[Tuple] = None,
+    aux_init: Any = (),
+    stateful_expand: bool = False,
+) -> Tuple:
     """expand_fn(queries, u [B, E]) -> (nbrs [B, E*R] ids, scores
     [B, E*R] f32). Returns (beam_ids [B, L] desc-sorted, beam_scores,
     vlog_ids [B, T], vlog_scores [B, T]); T = max(track_visited, E)
     records the first T expanded nodes per query (the Vamana visited
-    set)."""
+    set).
+
+    `stateful_expand` switches expand_fn to the 3-argument form
+    expand_fn(queries, u, aux) -> (nbrs, scores, aux): `aux` is carried
+    through the loop (and, in segmented mode, through the returned state
+    between calls); `aux_init` seeds it on a fresh start. The recompute
+    engine carries its cross-query embedding cache in it.
+
+    Segmented mode: with `iter_budget`, run at most that many hops from
+    `init_state` (or from a fresh start) and return the whole state
+    (beam_ids, beam_scores, expanded, visited, it, vlog_ids, vlog_scores,
+    aux), which a later call resumes. With `init_state` the entries and
+    their scores are not computed again."""
     b = queries.shape[0]
     dev = queries.device
     L = beam_width
@@ -72,34 +91,45 @@ def _beam_search_core(
     H = 1 << hash_bits
     T = max(track_visited, E)
 
-    entries = torch.as_tensor(entry, dtype=torch.int64, device=dev)
-    if entries.ndim == 0:
-        entries = entries[None]
-    if entries.ndim == 1:
-        entry_rows = entries[None, :].expand(b, -1)
+    if init_state is None:
+        entries = torch.as_tensor(entry, dtype=torch.int64, device=dev)
+        if entries.ndim == 0:
+            entries = entries[None]
+        if entries.ndim == 1:
+            entry_rows = entries[None, :].expand(b, -1)
+        else:
+            entry_rows = entries
+        s_n = entry_rows.shape[1]
+        if entry_scores is None:
+            entry_scores = entry_score_fn(queries, entry_rows)   # [B, S]
+        beam_ids = torch.full((b, L), n_sentinel, dtype=torch.int64,
+                              device=dev)
+        beam_ids[:, :s_n] = entry_rows
+        # entries keep their real scores even when excluded; `exclude`
+        # only gates candidate admission
+        beam_scores = torch.full((b, L), NEG_INF, dtype=torch.float32,
+                                 device=dev)
+        beam_scores[:, :s_n] = entry_scores.float()
+        expanded = torch.zeros((b, L), dtype=torch.bool, device=dev)
+        visited = torch.full((b, H), -1, dtype=torch.int64, device=dev)
+        visited.scatter_(1, _hash_slot(entry_rows, hash_bits), entry_rows)
+        vlog_ids = torch.full((b, T), n_sentinel, dtype=torch.int64,
+                              device=dev)
+        vlog_scores = torch.full((b, T), NEG_INF, dtype=torch.float32,
+                                 device=dev)
+        it, aux = 0, aux_init
     else:
-        entry_rows = entries
-    s_n = entry_rows.shape[1]
-    if entry_scores is None:
-        entry_scores = entry_score_fn(queries, entry_rows)       # [B, S]
-    beam_ids = torch.full((b, L), n_sentinel, dtype=torch.int64, device=dev)
-    beam_ids[:, :s_n] = entry_rows
-    # entries keep their real scores even when excluded; `exclude` only
-    # gates candidate admission
-    beam_scores = torch.full((b, L), NEG_INF, dtype=torch.float32, device=dev)
-    beam_scores[:, :s_n] = entry_scores.float()
-    expanded = torch.zeros((b, L), dtype=torch.bool, device=dev)
-    visited = torch.full((b, H), -1, dtype=torch.int64, device=dev)
-    visited.scatter_(1, _hash_slot(entry_rows, hash_bits), entry_rows)
+        (beam_ids, beam_scores, expanded, visited, it, vlog_ids,
+         vlog_scores, aux) = init_state
 
-    vlog_ids = torch.full((b, T), n_sentinel, dtype=torch.int64, device=dev)
-    vlog_scores = torch.full((b, T), NEG_INF, dtype=torch.float32, device=dev)
     exclude = exclude.to(torch.int64)
     c = E * r
     lower = (torch.arange(c, device=dev)[None, :]
              < torch.arange(c, device=dev)[:, None])        # [i, j]: j < i
+    stop = max_iters if iter_budget is None else min(max_iters,
+                                                     it + iter_budget)
 
-    for it in range(max_iters):
+    while it < stop:
         mask = (~expanded) & (beam_ids != n_sentinel) & (beam_scores > NEG_INF)
         if not bool(mask.any()):
             break
@@ -125,7 +155,10 @@ def _beam_search_core(
         hit.scatter_(1, u_pos, active)
         expanded = expanded | hit
 
-        nbrs, cand_scores = expand_fn(queries, u)             # [B, E*R]
+        if stateful_expand:
+            nbrs, cand_scores, aux = expand_fn(queries, u, aux)  # [B, E*R]
+        else:
+            nbrs, cand_scores = expand_fn(queries, u)           # [B, E*R]
         nbrs = nbrs.to(torch.int64)
         cand_active = active.repeat_interleave(r, dim=1)
 
@@ -150,6 +183,10 @@ def _beam_search_core(
         beam_scores, pos = beam_scores[:, :L], pos[:, :L]
         beam_ids = torch.gather(all_ids, 1, pos)
         expanded = torch.gather(all_exp, 1, pos)
+        it += 1
+    if iter_budget is not None:
+        return (beam_ids, beam_scores, expanded, visited, it, vlog_ids,
+                vlog_scores, aux)
     return beam_ids, beam_scores, vlog_ids, vlog_scores
 
 
@@ -330,6 +367,264 @@ def _rescore(queries, corpus, corpus_nsq, cand, n_sentinel, metric, k_out,
     top_scores, pos = torch.sort(scores, dim=1, descending=True, stable=True)
     top_scores, pos = top_scores[:, :k_out], pos[:, :k_out]
     return torch.gather(cand, 1, pos), top_scores
+
+
+# ---------------------------------------------------------------- recompute
+#
+# Pruned mode (LEANN's signature trick): no stored vectors exist; every
+# hop's candidates are re-embedded by the BERT encoder inside the
+# traversal loop, on the same device. `stats` (a dict, optional) counts
+# per search: hops, candidate slots, encoder rows (padding included) and,
+# with the dedup cache, the rows that missed it.
+
+RECOMPUTE_CHUNK = 4096  # rows per forward on the plain path
+ENC_CHUNK = 2048        # rows per forward of the dedup cache's misses
+
+
+def _count(stats: Optional[dict], **kw) -> None:
+    if stats is not None:
+        for k, v in kw.items():
+            stats[k] = stats.get(k, 0) + int(v)
+
+
+def _scores(emb: torch.Tensor, q: torch.Tensor, metric: str) -> torch.Tensor:
+    """[B, K, D] embeddings x [B, D] queries -> [B, K] float32 scores."""
+    dots = torch.einsum("bkd,bd->bk", emb, q)
+    if metric == "l2":
+        return 2.0 * dots - (emb * emb).sum(-1)
+    return dots
+
+
+def _recompute_fns(token_ids, attn_mask, adjacency, bert_params, metric,
+                   config, chunk_target=RECOMPUTE_CHUNK, stats=None):
+    """The plain expand / score closures: every candidate slot is
+    encoded. Forwards of more than `chunk_target` rows run in equal
+    chunks (the rows padded with the sentinel's all-padding tokens) to
+    bound the encoder's transient memory."""
+    n_sentinel = token_ids.shape[0] - 1
+
+    def _encode(toks, mask):
+        rows = toks.shape[0]
+        if rows <= chunk_target:
+            _count(stats, encoded_rows=rows)
+            return bert_forward(bert_params, toks, mask, config)
+        n_chunks = -(-rows // chunk_target)
+        chunk = -(-rows // n_chunks)
+        pad = n_chunks * chunk - rows
+        if pad:
+            toks = torch.nn.functional.pad(toks, (0, 0, 0, pad))
+            mask = torch.nn.functional.pad(mask, (0, 0, 0, pad))
+        _count(stats, encoded_rows=n_chunks * chunk)
+        emb = torch.cat([
+            bert_forward(bert_params, toks[i : i + chunk],
+                         mask[i : i + chunk], config)
+            for i in range(0, n_chunks * chunk, chunk)])
+        return emb[:rows]
+
+    def score_fn(q, ids):
+        b, k = ids.shape
+        toks = token_ids[ids].reshape(b * k, -1)
+        mask = attn_mask[ids].reshape(b * k, -1)
+        return _scores(_encode(toks, mask).reshape(b, k, -1), q, metric)
+
+    def expand_fn(q, u):
+        nbrs = adjacency[u].reshape(q.shape[0], -1)
+        _count(stats, hops=1, slots=nbrs.numel())
+        return nbrs, score_fn(q, nbrs)
+
+    return n_sentinel, expand_fn, score_fn
+
+
+def _recompute_cache_init(n_rows, d, seed_ids, seed_vecs, device):
+    """Fresh per-batch embedding cache: [N+1, D] float32 vectors (so
+    cached scores equal the uncached path's) + valid bitmap, pre-seeded
+    with the engine's entry pool (hubs are the nodes every query revisits
+    first)."""
+    vecs = torch.zeros((n_rows, d), dtype=torch.float32, device=device)
+    valid = torch.zeros((n_rows,), dtype=torch.bool, device=device)
+    if seed_ids is not None and seed_vecs is not None:
+        vecs[seed_ids] = seed_vecs.float()
+        valid[seed_ids] = True
+    return vecs, valid
+
+
+def _recompute_cached_fns(token_ids, attn_mask, adjacency, bert_params,
+                          metric, config, enc_chunk=ENC_CHUNK, stats=None):
+    """Cross-query dedup: the plain expand_fn embeds B x E*R slots per
+    hop although queries of a batch expand the same hubs and neighbour
+    rows overlap. Here every embedding lands in a dense cache (aux =
+    ([N+1, D] vecs, [N+1] valid)); per hop the candidate ids are sorted,
+    the first occurrences that are neither cached nor the sentinel are
+    compacted to the front of a miss buffer, and only those rows run the
+    encoder: chunks of c_big = max(16, enc_chunk) rows, then the tail in
+    chunks of c_small = max(16, c_big // 8), the last one padded with the
+    sentinel (its junk embedding lands in row N, which the core masks).
+    Scoring is one cache gather and a float32 product.
+
+    The reference sizes its chunk loops on the device (a dynamic-trip
+    `lax.while_loop`); here the miss count is read on the host once per
+    hop, by the compaction itself, and the loops run in Python."""
+    n_sentinel = token_ids.shape[0] - 1
+    c_big = max(16, int(enc_chunk))
+    c_small = max(16, c_big // 8)
+
+    def expand_fn(q, u, aux):
+        cache_vecs, cache_valid = aux
+        nbrs = adjacency[u].reshape(q.shape[0], -1)            # [B, C]
+        sorted_ids = torch.sort(nbrs.reshape(-1)).values
+        first = torch.ones_like(sorted_ids, dtype=torch.bool)
+        first[1:] = sorted_ids[1:] != sorted_ids[:-1]
+        miss = first & ~cache_valid[sorted_ids] & (sorted_ids != n_sentinel)
+        misses = sorted_ids[miss]                   # one read to the host
+        m = misses.shape[0]
+        n_big = m // c_big
+        n_small = -(-(m - n_big * c_big) // c_small)
+        spans = ([(i * c_big, c_big) for i in range(n_big)]
+                 + [(n_big * c_big + i * c_small, c_small)
+                    for i in range(n_small)])
+        buf = torch.full((n_big * c_big + n_small * c_small,), n_sentinel,
+                         dtype=misses.dtype, device=misses.device)
+        buf[:m] = misses
+        for start, size in spans:
+            rows = buf[start : start + size]
+            cache_vecs[rows] = bert_forward(
+                bert_params, token_ids[rows], attn_mask[rows],
+                config).float()
+            cache_valid[rows] = True
+        _count(stats, hops=1, slots=nbrs.numel(), misses=m,
+               encoded_rows=buf.numel())
+        emb = cache_vecs[nbrs].float()                         # [B, C, D]
+        return nbrs, _scores(emb, q, metric), (cache_vecs, cache_valid)
+
+    return n_sentinel, expand_fn
+
+
+def _recompute_entry(queries, entry, seed_ids, seed_vecs, metric,
+                     n_entries, beam_width):
+    """Query-adaptive entries from the engine's seed pool: one [B, M]
+    product picks each query's best n_entries seeds."""
+    if seed_vecs is None:
+        return entry, None
+    seed_dots = queries @ seed_vecs.T                          # [B, M]
+    if metric == "l2":
+        seed_scores = (2.0 * seed_dots
+                       - (seed_vecs * seed_vecs).sum(1)[None, :])
+    else:
+        seed_scores = seed_dots
+    s_eff = min(n_entries, int(seed_ids.shape[0]), beam_width)
+    entry_sc, best = topk_stable(seed_scores, s_eff)
+    return seed_ids[best], entry_sc
+
+
+def _recompute_traverse(queries, token_ids, attn_mask, adjacency,
+                        bert_params, entry, exclude, state, seed_ids,
+                        seed_vecs, beam_width, max_iters, metric, config,
+                        hash_bits, expansions, visited_pool, n_entries,
+                        use_cache, enc_chunk, chunk, iter_budget, stats):
+    """The core over the recompute closures. state=None starts fresh
+    (seeding, and with use_cache a new cache); otherwise resumes it.
+    With iter_budget, runs at most that many hops and returns the whole
+    state (the cache rides in it); without, runs to the end and returns
+    (beam_ids, beam_scores, vlog_ids, vlog_scores)."""
+    n_sentinel, expand_fn, score_fn = _recompute_fns(
+        token_ids, attn_mask, adjacency, bert_params, metric, config, chunk,
+        stats)
+    aux0: Any = ()
+    if use_cache:
+        n_sentinel, expand_fn = _recompute_cached_fns(
+            token_ids, attn_mask, adjacency, bert_params, metric, config,
+            enc_chunk, stats)
+        if state is None:
+            aux0 = _recompute_cache_init(
+                token_ids.shape[0], queries.shape[1], seed_ids, seed_vecs,
+                queries.device)
+    entry_sc = None
+    if state is None:
+        entry, entry_sc = _recompute_entry(
+            queries, entry, seed_ids, seed_vecs, metric, n_entries,
+            beam_width)
+    return _beam_search_core(
+        queries, adjacency.shape[1], entry, exclude, expand_fn, score_fn,
+        n_sentinel, beam_width, max_iters, hash_bits, expansions,
+        track_visited=visited_pool, entry_scores=entry_sc,
+        iter_budget=iter_budget, init_state=state, aux_init=aux0,
+        stateful_expand=use_cache,
+    )
+
+
+def beam_search_recompute_batch(
+    queries: torch.Tensor,        # [B, D] f32 (query embeddings)
+    token_ids: torch.Tensor,      # [N+1, T] int (row N = padding)
+    attn_mask: torch.Tensor,      # [N+1, T] int
+    adjacency: torch.Tensor,      # [N+1, R] int
+    bert_params,                  # models.bert.BertParams
+    entry,
+    exclude: torch.Tensor,
+    beam_width: int,
+    max_iters: int,
+    metric: str,
+    config,                       # models.bert.BertConfig
+    hash_bits: int = 12,
+    expansions: int = 1,
+    visited_pool: int = 128,
+    seed_ids: Optional[torch.Tensor] = None,   # [M] shared pool
+    seed_vecs: Optional[torch.Tensor] = None,  # [M, D] f32 embeddings
+    n_entries: int = 8,
+    use_cache: bool = False,
+    enc_chunk: int = ENC_CHUNK,
+    chunk: int = RECOMPUTE_CHUNK,
+    stats: Optional[dict] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Recompute traversal in one pass: no stored vectors; each hop's
+    candidates are re-embedded by the encoder inside the loop.
+
+    visited_pool > 0 merges the visited log into the final top-k: every
+    logged node's score is already an exact fresh-embedding score, so
+    recovering neighbours the beam dropped costs no encoder forward.
+    seed_ids / seed_vecs: the engine's pool, embedded once at engine
+    build; each query starts from its n_entries best members.
+    use_cache: the cross-query dedup cache, its misses encoded in chunks
+    of `enc_chunk` rows; without it every slot is encoded, in forwards of
+    at most `chunk` rows."""
+    out = _recompute_traverse(
+        queries, token_ids, attn_mask, adjacency, bert_params, entry,
+        exclude, None, seed_ids, seed_vecs, beam_width, max_iters, metric,
+        config, hash_bits, expansions, visited_pool, n_entries, use_cache,
+        enc_chunk, chunk, None, stats)
+    if not visited_pool:
+        return out[0], out[1]
+    return _merge_visited(*out, token_ids.shape[0] - 1)
+
+
+def _recompute_done(state, max_iters, n_sentinel) -> bool:
+    beam_ids, beam_scores, expanded, _, it = state[:5]
+    live = (~expanded) & (beam_ids != n_sentinel) & (beam_scores > NEG_INF)
+    return it >= max_iters or not bool(live.any())
+
+
+def beam_search_recompute_segmented(
+    queries, token_ids, attn_mask, adjacency, bert_params, entry,
+    exclude, beam_width, max_iters, metric, config,
+    hash_bits=12, expansions=1, visited_pool=128,
+    seed_ids=None, seed_vecs=None, n_entries=8, segment_iters=8,
+    use_cache=False, enc_chunk=ENC_CHUNK, chunk=RECOMPUTE_CHUNK, stats=None,
+):
+    """The recompute traversal in segments of at most `segment_iters`
+    hops, each resuming the state the last one returned (the cache rides
+    in it); equal to one pass. The reference segments because of a TPU
+    relay's limit on one dispatch; on the card nothing requires it, and
+    the engine uses it only when asked for segments."""
+    n_sentinel = token_ids.shape[0] - 1
+    state = None
+    while state is None or not _recompute_done(state, max_iters, n_sentinel):
+        state = _recompute_traverse(
+            queries, token_ids, attn_mask, adjacency, bert_params, entry,
+            exclude, state, seed_ids, seed_vecs, beam_width, max_iters,
+            metric, config, hash_bits, expansions, visited_pool, n_entries,
+            use_cache, enc_chunk, chunk, segment_iters, stats)
+    if not visited_pool:
+        return state[0], state[1]
+    return _merge_visited(state[0], state[1], state[5], state[6], n_sentinel)
 
 
 # ---------------------------------------------------------------- host API
@@ -534,3 +829,113 @@ def _merge_visited(beam_ids, beam_sc, vlog_ids, vlog_sc, n_sentinel):
     top_sc, pos = top_sc[:, :beam_ids.shape[1]], pos[:, :beam_ids.shape[1]]
     top_ids = torch.gather(cand_s, 1, pos)
     return torch.where(top_sc == NEG_INF, n_sentinel, top_ids), top_sc
+
+
+class RecomputeBeamEngine:
+    """Pruned-index traversal: stored tokens, no stored vectors. The
+    encoder (`models.bert.BertEncoder`) must live on `device`.
+
+    The reference's environment knobs are arguments here, with its
+    defaults: `seed_pool` (LEANN_RECOMPUTE_SEEDS, 1024) at construction;
+    `dedup` (LEANN_RECOMPUTE_DEDUP, on), `enc_chunk`
+    (LEANN_RECOMPUTE_ENC_CHUNK, 2048) and `segment_iters`
+    (LEANN_RECOMPUTE_SEGMENT; 0, one pass: the reference's TPU default of
+    8 works around a relay limit the card does not have) per search.
+    `last_stats` holds the counts of the last search (hops, slots,
+    encoder rows, and misses with dedup)."""
+
+    def __init__(
+        self,
+        token_ids: np.ndarray,    # [N, T]
+        attn_mask: np.ndarray,    # [N, T]
+        adjacency: np.ndarray,    # [N, R]
+        medoid: int,
+        encoder,
+        metric: str = "ip",
+        hash_bits: int = 12,
+        visited_pool: int = 128,
+        seed_pool: int = 1024,             # 0 disables
+        device: DeviceLike = None,
+    ):
+        self.device = dev = resolve_device(device)
+        if (torch.empty(0, device=encoder.device).device
+                != torch.empty(0, device=dev).device):
+            raise ValueError(f"the encoder is on {encoder.device}, the "
+                             f"engine on {dev}")
+        self.visited_pool = visited_pool
+        self.n, t = token_ids.shape
+        self.encoder = encoder
+        self.metric = "ip" if metric == "cosine" else metric
+        self.hash_bits = hash_bits
+        self.last_stats: dict = {}
+        pad = np.zeros((1, t), np.int32)
+        self.token_ids = torch.from_numpy(np.concatenate(
+            [np.asarray(token_ids, np.int32), pad])).to(dev)
+        self.attn_mask = torch.from_numpy(np.concatenate(
+            [np.asarray(attn_mask, np.int32), pad])).to(dev)
+        adj = np.ascontiguousarray(adjacency, dtype=np.int32)
+        r = adj.shape[1]
+        if adj.shape[0] == self.n:
+            adj = np.concatenate([adj, np.full((1, r), self.n, np.int32)])
+        self.adjacency = torch.from_numpy(adj.astype(np.int64)).to(dev)
+        self.medoid = int(medoid)
+
+        # Query-adaptive entries without stored vectors: embed a fixed
+        # seed pool once here, then every query starts from its best pool
+        # members. Pool = high-in-degree hubs + a uniform draw + the
+        # medoid, as the reference picks it.
+        self.seed_ids = self.seed_vecs = None
+        if seed_pool and self.n > 1:
+            pool = min(seed_pool, self.n)
+            indeg = np.bincount(adj[:-1][adj[:-1] < self.n], minlength=self.n)
+            n_hub = min(max(pool // 4, 1), self.n)
+            hubs = np.argpartition(indeg, -n_hub)[-n_hub:]
+            rng = np.random.default_rng(0)
+            rand = rng.choice(self.n, size=pool, replace=False)
+            seed = np.unique(np.concatenate(
+                [[int(medoid)], hubs, rand])).astype(np.int32)
+            # encoded once, padded to the power-of-two row count the
+            # reference encodes it at
+            s, sb = len(seed), _bucket_batch(len(seed))
+            tok = np.zeros((sb, t), np.int32)
+            msk = np.zeros((sb, t), np.int32)
+            tok[:s] = np.asarray(token_ids)[seed]
+            msk[:s] = np.asarray(attn_mask)[seed]
+            vecs = encoder.encode_tokens(tok, msk)[:s]
+            self.seed_ids = torch.from_numpy(seed.astype(np.int64)).to(dev)
+            self.seed_vecs = torch.from_numpy(
+                np.ascontiguousarray(vecs, np.float32)).to(dev)
+
+    def search(
+        self, queries: np.ndarray, k: int = 10, beam_width: int = 32,
+        max_iters: Optional[int] = None, *, dedup: bool = True,
+        enc_chunk: int = ENC_CHUNK, segment_iters: int = 0,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Returns (idx [B, k] with -1 padding, scores [B, k])."""
+        q = np.asarray(queries, dtype=np.float32)
+        if q.ndim == 1:
+            q = q[None, :]
+        b = q.shape[0]
+        kw = {"segment_iters": segment_iters} if segment_iters else {}
+        fn = (beam_search_recompute_segmented if segment_iters
+              else beam_search_recompute_batch)
+        self.last_stats = {}
+        with torch.no_grad():
+            ids, scores = fn(
+                torch.from_numpy(q).to(self.device),
+                self.token_ids, self.attn_mask, self.adjacency,
+                self.encoder.params, self.medoid,
+                torch.full((b,), -1, dtype=torch.int64, device=self.device),
+                beam_width=beam_width,
+                max_iters=max_iters or (2 * beam_width + 16),
+                metric=self.metric, config=self.encoder.config,
+                hash_bits=self.hash_bits, visited_pool=self.visited_pool,
+                seed_ids=self.seed_ids, seed_vecs=self.seed_vecs,
+                n_entries=min(16, max(1, beam_width // 2)),
+                use_cache=dedup, enc_chunk=enc_chunk,
+                stats=self.last_stats, **kw,
+            )
+        k = min(k, ids.shape[1])
+        idx = ids[:, :k].cpu().numpy()
+        sc = scores[:, :k].cpu().numpy()
+        return np.where(idx == self.n, -1, idx), sc

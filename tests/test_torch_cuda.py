@@ -776,18 +776,18 @@ def _recompute_engine(setup, dtype, device):
     tok, mask, adj, medoid, _ = setup
     enc = bert.BertEncoder(config=bert.BertConfig.tiny(), compute_dtype=dtype,
                            device=device)
-    return RecomputeBeamEngine(tok, mask, adj, medoid, enc, device=device)
+    return RecomputeBeamEngine(tok, mask, adj, medoid, enc, seed_pool=32,
+                               device=device)
 
 
 @pytest.mark.parametrize("dtype,atol", [("float32", 1e-4), ("bfloat16", 4e-3)])
-def test_recompute_engine_on_cuda_matches_cpu(dev, recompute_setup,
-                                              monkeypatch, dtype, atol):
+def test_recompute_engine_on_cuda_matches_cpu(dev, recompute_setup, dtype,
+                                              atol):
     """The recompute engine on the card against the CPU: float32 ids
     equal and scores within 1e-4; bf16 (products rounded to bf16 in
     another order on each device) each query's own row first, the top-5
     equal as sets where the 5th and 6th scores are more than 4e-3 apart,
     and the sorted scores within 4e-3."""
-    monkeypatch.setenv("LEANN_RECOMPUTE_SEEDS", "32")
     q = recompute_setup[-1]
     gi, gs = _recompute_engine(recompute_setup, dtype, dev).search(
         q, k=6, beam_width=24)
@@ -802,25 +802,22 @@ def test_recompute_engine_on_cuda_matches_cpu(dev, recompute_setup,
     np.testing.assert_allclose(gs, cs, rtol=0, atol=atol)
 
 
-def test_recompute_dedup_on_cuda_matches_uncached(dev, recompute_setup,
-                                                  monkeypatch):
+def test_recompute_dedup_on_cuda_matches_uncached(dev, recompute_setup):
     """Dedup on against off on the card (bf16): the same rows encoded in
     other batches may differ in their low bits, so the top-5 are equal as
     sets where the 5th and 6th scores are more than 1e-3 apart and the
     scores within 1e-3; segments of 4 hops equal one pass exactly."""
-    monkeypatch.setenv("LEANN_RECOMPUTE_SEEDS", "32")
     eng = _recompute_engine(recompute_setup, "bfloat16", dev)
     q = recompute_setup[-1]
     out = {}
-    for dedup, seg in (("0", "0"), ("1", "0"), ("1", "4")):
-        monkeypatch.setenv("LEANN_RECOMPUTE_DEDUP", dedup)
-        monkeypatch.setenv("LEANN_RECOMPUTE_SEGMENT", seg)
-        out[dedup, seg] = eng.search(q, k=6, beam_width=24)
+    for dedup, seg in ((False, 0), (True, 0), (True, 4)):
+        out[dedup, seg] = eng.search(q, k=6, beam_width=24, dedup=dedup,
+                                     segment_iters=seg)
         assert eng.last_stats["hops"] > 0
-    (ui, us), (ci, cs) = out["0", "0"], out["1", "0"]
+    (ui, us), (ci, cs) = out[False, 0], out[True, 0]
     clear = (us[:, 4] - us[:, 5]) > 1e-3
     for a, b, c in zip(ci, ui, clear):
         assert not c or set(a[:5].tolist()) == set(b[:5].tolist())
     np.testing.assert_allclose(cs, us, rtol=0, atol=1e-3)
-    for a, b in zip(out["1", "0"], out["1", "4"]):
+    for a, b in zip(out[True, 0], out[True, 4]):
         np.testing.assert_array_equal(a, b)

@@ -75,19 +75,23 @@ def setup():
                 medoid=int(medoid), queries=vectors[QUERY_ROWS])
 
 
-def _env(monkeypatch, dedup, segment, chunk):
+def _modes(monkeypatch, dedup, segment, chunk):
+    """Sets the reference's knobs for a mode and returns the port's
+    arguments for it."""
     monkeypatch.setenv("LEANN_RECOMPUTE_DEDUP", "1" if dedup else "0")
     monkeypatch.setenv("LEANN_RECOMPUTE_SEGMENT", str(segment))
     if chunk is None:
         monkeypatch.delenv("LEANN_RECOMPUTE_ENC_CHUNK", raising=False)
     else:
         monkeypatch.setenv("LEANN_RECOMPUTE_ENC_CHUNK", str(chunk))
+    return dict(dedup=dedup, segment_iters=segment,
+                enc_chunk=tb.ENC_CHUNK if chunk is None else chunk)
 
 
-def _port_engine(s):
+def _port_engine(s, seeds=1024):
     return tb.RecomputeBeamEngine(s["tok"], s["mask"], s["adjacency"],
                                   s["medoid"], s["tenc"], metric="ip",
-                                  device="cpu")
+                                  seed_pool=seeds, device="cpu")
 
 
 @pytest.mark.parametrize("dedup,segment,chunk,seeds", [
@@ -104,14 +108,14 @@ def test_engine_matches_reference(setup, monkeypatch, dedup, segment, chunk,
     (4 queries x R=12 slots): chunks of 96 take the small-chunk loop
     (c_small 16) only, chunks of 16 both loops."""
     s = setup
-    _env(monkeypatch, dedup, segment, chunk)
+    modes = _modes(monkeypatch, dedup, segment, chunk)
     if seeds is not None:
         monkeypatch.setenv("LEANN_RECOMPUTE_SEEDS", str(seeds))
     jeng = JRecomputeBeamEngine(s["tok"], s["mask"], s["adjacency"],
                                 s["medoid"], s["jenc"], metric="ip")
     want_ids, want_sc = jeng.search(s["queries"], k=5, beam_width=24)
-    eng = _port_engine(s)
-    ids, sc = eng.search(s["queries"], k=5, beam_width=24)
+    eng = _port_engine(s, 1024 if seeds is None else seeds)
+    ids, sc = eng.search(s["queries"], k=5, beam_width=24, **modes)
     np.testing.assert_array_equal(ids, want_ids)
     np.testing.assert_allclose(sc, want_sc, rtol=0, atol=1e-4)
     assert ids[:, 0].tolist() == QUERY_ROWS
@@ -129,25 +133,31 @@ def test_engine_matches_reference(setup, monkeypatch, dedup, segment, chunk,
 
 def test_port_modes_agree_and_seed_pool_matches(setup, monkeypatch):
     """Within the port: segments equal one pass exactly, the cache and
-    the plain path's chunked forwards (LEANN_RECOMPUTE_CHUNK) equal the
-    plain path (1e-5), and the seed pool (ids, shape) equals the
-    reference's."""
+    the plain path's chunked forwards (`chunk`) equal the plain path
+    (1e-5), and the seed pool (ids, shape) equals the reference's."""
     s = setup
-    monkeypatch.setenv("LEANN_RECOMPUTE_SEEDS", "32")
-    port_engine = _port_engine(s)
+    port_engine = _port_engine(s, seeds=32)
     out = {}
     for dedup in (False, True):
         for segment in (0, 3):
-            _env(monkeypatch, dedup, segment, None)
-            out[dedup, segment] = port_engine.search(s["queries"], k=8,
-                                                     beam_width=16)
+            out[dedup, segment] = port_engine.search(
+                s["queries"], k=8, beam_width=16, dedup=dedup,
+                segment_iters=segment)
     # the plain path's forwards split into chunks of 10 rows: 48 slots a
     # hop pad to 5 x 10
-    _env(monkeypatch, False, 0, None)
-    monkeypatch.setenv("LEANN_RECOMPUTE_CHUNK", "10")
-    out["chunked"] = port_engine.search(s["queries"], k=8, beam_width=16)
-    assert port_engine.last_stats["encoded_rows"] == (
-        port_engine.last_stats["hops"] * 50)
+    e = port_engine
+    stats = {}
+    ids, sc = tb.beam_search_recompute_batch(
+        torch.from_numpy(s["queries"]), e.token_ids, e.attn_mask,
+        e.adjacency, e.encoder.params, e.medoid,
+        torch.full((4,), -1, dtype=torch.int64), beam_width=16,
+        max_iters=2 * 16 + 16, metric="ip", config=e.encoder.config,
+        hash_bits=e.hash_bits, visited_pool=e.visited_pool,
+        seed_ids=e.seed_ids, seed_vecs=e.seed_vecs, n_entries=8, chunk=10,
+        stats=stats)
+    ids = ids[:, :8].numpy()
+    out["chunked"] = np.where(ids == 240, -1, ids), sc[:, :8].numpy()
+    assert stats["encoded_rows"] == stats["hops"] * 50
     np.testing.assert_array_equal(out["chunked"][0], out[False, 0][0])
     np.testing.assert_allclose(out["chunked"][1], out[False, 0][1], rtol=0,
                                atol=1e-5)
@@ -158,6 +168,7 @@ def test_port_modes_agree_and_seed_pool_matches(setup, monkeypatch):
     np.testing.assert_allclose(out[True, 0][1], out[False, 0][1], rtol=0,
                                atol=1e-5)
 
+    monkeypatch.setenv("LEANN_RECOMPUTE_SEEDS", "32")
     jeng = JRecomputeBeamEngine(s["tok"], s["mask"], s["adjacency"],
                                 s["medoid"], s["jenc"], metric="ip")
     assert len(jeng.seed_ids) < 240
