@@ -7,8 +7,8 @@ calls (Vamana build -> fused graph search at D % 128 == 0; Vamana build
 -> PQ graph search at 96-d; IVF build -> bf16 bucket search; the
 residual-int8 IVF serving tier and the IVF-PQ tier at 10M x 96; the
 row-gather roofline; the BERT encoder at bert-base widths and `entry()`;
-pruned recompute, BASELINE config 3 at 100k passages), builds the CUDA
-kernels from
+pruned recompute, BASELINE config 3 at 100k passages; sharded search
+over four shards of one card), builds the CUDA kernels from
 `leann_tpu_torch/csrc/` (one nvcc per source, all started together), and
 holds each against its plain PyTorch version. Phases, one JSON line each
 on stdout:
@@ -121,13 +121,28 @@ on stdout:
            (brute force) under a one-facet filter (~2.7k passages); bytes
            of the stored vectors against tokens + graph; peak memory. No
            kernel but B1 may launch
+  sharded  `leann_tpu_torch.parallel` over SHARDS=4 shards of the sift
+           phase's corpus (1M x 128 l2, its oracle) on a (1, 4) mesh of
+           cuda:0: ShardedFlatIndex (recall@10, and a (2, 2) mesh's ids
+           equal), ShardedGraphIndex with the auto engine, which must be
+           `fused` (R=48 L=80 alpha 1.2 wave 8192 per shard: build and
+           pack s, B1 launches in the builds and the search, recall@10
+           at beam 64, device QPS per batch of 2048 by CUDA events beside
+           the sift phase's, a profile), B3 on the same subgraphs,
+           ShardedIvfIndex (500 clusters per shard) and ShardedIvf8Index
+           at nprobe 8; then `load_searcher(sharded=True)` twice on the
+           rag phase's index (one shard): the first load builds and
+           writes `.shards.npz`, the second reuses it (no B1 launch, the
+           same mtime) with ids and scores equal; self-hit@1; peak
+           memory. B1 and B3 must launch, no other kernel
   kernels_main
            each kernel vs its plain version at every shape the main
            paths launched it with: fused_beam_search at rag build (D=768,
            R=32, ip, L=64, visited log 128), rag search at L=64 and
-           L=1024, sift build (1M, L=80, visited log 160) and sift search
-           (1M, B=2048); pq_beam_search at deep search (1M, B=2048, beam
-           64 and DEEP_BEAM); ivf_bucket_dots at the ivf phase's search
+           L=1024, sift build (1M, L=80, visited log 160), sift search
+           (1M, B=2048), the recompute cases and `sharded search shard 0`
+           (250k nodes, B=2048, L=64); pq_beam_search at deep search (1M,
+           B=2048, beam 64 and DEEP_BEAM) and `sharded pq search shard 0`; ivf_bucket_dots at the ivf phase's search
            (B=2048, nprobe 8) and ivf8_bucket_scores at the ivf8 phase's
            (B=512 and 2048, and a hot case: B=2048 with every query
            probing the 8 most-probed buckets); gather_score at the
@@ -139,7 +154,7 @@ on stdout:
 
 The counts of kernel launches are set to 0 just before each main-path
 phase (rag, sift, deep, ivf, ivf8, gather, ivfpq, rag_ivf, encode,
-recompute) and read just after it. Any failure exits
+recompute, sharded) and read just after it. Any failure exits
 non-zero with no `ok` line. The last lines are the kernel table, the
 card's `nvidia-smi` name and power limit, and {"ok": true, "device": ...}.
 """
@@ -215,6 +230,22 @@ RECOMPUTE_MIN_RECALL = 0.906
 # stored at its length bucket (16). The first card run of the check gave
 # 4.8e-7 (4 float32 ulps at 1.0, PERF.md); the limit is 4x that
 RECOMPUTE_SCORE_TOL = 2e-6
+
+# sharded search (`parallel/sharded.py`): the sift phase's corpus over a
+# (1, 4) mesh of one card, the sift graph settings per shard, IVF with the
+# ivf phase's 2,000 clusters split over the shards. The first card run
+# gave recall@10 0.9999 (fused), 0.4740 (pq on the same subgraphs: the
+# PQ kernel's bf16 score ties, ROADMAP Queue C), 0.9341 (ivf: each shard
+# keeps only its bf16 top-k, with no overfetch before the f32 rescore, as
+# the reference does; a 10x overfetch gives 0.998 on a CPU analogue) and
+# 0.9418 (ivf8). pq and ivf are held to that run less 0.02 (PERF.md §2).
+SHARDS = 4
+SHARDED_N = SIFT_N
+SHARDED_FLAT_MIN_RECALL = 0.999   # ties only
+SHARDED_MIN_RECALL = 0.95         # fused graph: the sift limit
+SHARDED_IVF_MIN_RECALL = 0.914
+SHARDED_IVF8_MIN_RECALL = IVF8_MIN_RECALL
+SHARDED_PQ_MIN_RECALL = 0.454
 
 FUSED = dict(
     name="fused_beam_search",
@@ -939,18 +970,24 @@ def rag_texts(n_docs):
                  for i in range(n_docs)]
 
 
-def rag_build_search(torch, dev, name, texts, vecs, q, pick, counter):
+def rag_build_search(torch, dev, name, texts, vecs, q, pick, counter,
+                     root=None):
     """The rag path on given embeddings: StreamingIndexBuilder (backend
     hnsw, R=32, L=64, ip) over `texts` / `vecs`, then IndexSearcher.search
     of the query vectors `q` (the embeddings of texts[pick]) at
-    complexity 64 and RAG_COMPLEXITY. Returns (engine, metrics)."""
+    complexity 64 and RAG_COMPLEXITY. The index lives under `root` when
+    given (kept), else in a temporary directory. Returns (engine,
+    metrics)."""
+    import contextlib
+
     from leann_tpu_torch.index import (
         IndexSearcher, SearchOptions, StreamingIndexBuilder,
     )
     from leann_tpu_torch.ops.distance import ExactEngine
     from leann_tpu_torch.store.passages import Passage
 
-    with tempfile.TemporaryDirectory() as tmp:
+    with (contextlib.nullcontext(root) if root is not None
+          else tempfile.TemporaryDirectory()) as tmp:
         base = os.path.join(tmp, "indexes", name, "documents.leann")
         index = StreamingIndexBuilder(base, dim=vecs.shape[1],
                                       backend="hnsw", metric="ip",
@@ -995,7 +1032,9 @@ def rag_build_search(torch, dev, name, texts, vecs, q, pick, counter):
         "launches_search": search_launches}
 
 
-def phase_rag(torch, dev, n_docs, counter):
+def phase_rag(torch, dev, n_docs, counter, root):
+    """The rag path with the fake embedder; the index stays under `root`
+    (the sharded phase loads it again)."""
     from leann_tpu_torch.embed.fake import FakeEmbedding
 
     rng, texts = rag_texts(n_docs)
@@ -1006,7 +1045,7 @@ def phase_rag(torch, dev, n_docs, counter):
     pick = rng.choice(n_docs, 256, replace=False)
     q = emb.embed([texts[i] for i in pick])
     engine, row = rag_build_search(torch, dev, "rag", texts, vecs, q, pick,
-                                   counter)
+                                   counter, root=root)
     emit({"phase": "rag", "embed_s": embed_s, **row})
     hit1, rec, rec64 = (row["self_hit1"], row["recall10"],
                         row["recall10_at_complexity_64"])
@@ -1018,7 +1057,7 @@ def phase_rag(torch, dev, n_docs, counter):
                              f"(build {row['launches_build']}, search "
                              f"{row['launches_search']})")
     return (engine, torch.from_numpy(np.asarray(q, np.float32)).to(dev),
-            pick, row)
+            pick, row, os.path.join(root, "indexes", "rag", "documents.leann"))
 
 
 def phase_sift(torch, dev, n, counter):
@@ -1083,7 +1122,9 @@ def phase_sift(torch, dev, n, counter):
         raise AssertionError(f"sift: recall@10 {rec} < 0.95")
     if build_launches <= 0 or search_launches <= 0:
         raise AssertionError("sift: the fused kernel was not launched")
-    return eng, windows[0][0], build_l
+    data = {"corpus": corpus, "queries": queries, "oracle": oracle,
+            "qps_mean": float(np.mean(qps))}
+    return eng, windows[0][0], build_l, data
 
 
 def phase_deep(torch, dev, n, counter, beams=(64, DEEP_BEAM)):
@@ -1902,6 +1943,163 @@ def phase_recompute(torch, dev, n, counter):
         queries, np.float32)).to(dev), torch.from_numpy(q_ids).to(dev))
 
 
+def phase_sharded(torch, dev, n, counter, sift, rag_base, rag_q, pick):
+    """Sharded search (`leann_tpu_torch.parallel`) over SHARDS shards of
+    the sift phase's corpus on one card: ShardedFlatIndex against the
+    exact oracle, also on a (2, 2) mesh; ShardedGraphIndex with the auto
+    engine (B1 in the per-shard builds and the search) and with B3 on the
+    same subgraphs; ShardedIvfIndex and ShardedIvf8Index at nprobe 8;
+    then `load_searcher(sharded=True)` twice on the rag phase's index
+    (the second load reuses `.shards.npz`). Returns (the fused index, the
+    B3 index, a batch of 2048 queries on the card)."""
+    from leann_tpu_torch.backend import load_searcher
+    from leann_tpu_torch.ops.distance import exact_topk
+    from leann_tpu_torch.parallel import (
+        ShardedFlatIndex, ShardedGraphIndex, ShardedIvf8Index,
+        ShardedIvfIndex, make_mesh,
+    )
+    from leann_tpu_torch.store import shardfile
+    from leann_tpu_torch.store.meta import IndexMeta, meta_path
+
+    t_phase = time.perf_counter()
+    fb, pb = FUSED["name"], PQ["name"]
+    corpus, queries = sift["corpus"][:n], sift["queries"]
+    oracle = sift["oracle"] if n == len(sift["corpus"]) else exact_topk(
+        queries, corpus, 10, metric="l2", device=dev)[1]
+    torch.cuda.synchronize()
+    base_bytes = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    mesh = make_mesh((1, SHARDS), devices=[dev] * SHARDS)
+    r, build_l, beam, batch, m = 48, 80, 64, 2048, 4
+    rows = {}
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def launches(fn, *names):
+        c0 = {k: counter(k) for k in names}
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: counter(k) - c0[k] for k in names}
+
+    flat, init_s = timed(lambda: ShardedFlatIndex(corpus, mesh, "l2"))
+    (fi, _), search_s = timed(lambda: flat.search(queries, k=10))
+    mesh22 = make_mesh((2, 2), devices=[dev] * SHARDS)
+    fi22, _ = ShardedFlatIndex(corpus, mesh22, "l2").search(queries, k=10)
+    rows["flat"] = {"init_s": init_s, "search_s": search_s,
+                    "recall10": recall_at(fi, oracle),
+                    "ids_equal_2x2": bool(np.array_equal(fi, fi22))}
+    del flat
+
+    (graph, t_graph), got = launches(lambda: timed(lambda: ShardedGraphIndex(
+        corpus, mesh, "l2", graph_degree=r, complexity=build_l, alpha=1.2,
+        build_wave_size=8192)), fb, pb)
+    # pack alone: a second auto index on the saved subgraphs
+    again, pack_s = timed(lambda: ShardedGraphIndex(
+        corpus, mesh, "l2", graph_degree=r,
+        adjacency_shards=graph.adjacency_shards, medoids=graph.medoids_host))
+    del again
+    (gi, _), got_s = launches(lambda: graph.search(queries, k=10,
+                                                   beam_width=beam), fb, pb)
+    windows = [torch.from_numpy(noisy_rows(corpus, (m, batch), 1000 + w)).to(dev)
+               for w in range(3)]
+    per_batch, qps = qps_windows(torch, lambda q: graph.search_device(
+        q, k=10, beam_width=beam), windows)
+    rows["graph"] = {
+        "engine": graph.engine, "build_s": t_graph - pack_s,
+        "pack_s": pack_s, "recall10": recall_at(gi, oracle),
+        "launches_build": got[fb], "launches_search": got_s[fb],
+        "launches_pq": got[pb] + got_s[pb], "beam": beam, "batch": batch,
+        "ms_per_batch": per_batch, "qps_windows": qps,
+        "qps_mean": float(np.mean(qps)),
+        "sift_one_device_qps_mean": sift["qps_mean"],
+        "profile": profile(torch, lambda: [graph.search_device(
+            q, k=10, beam_width=beam) for q in windows[1]])}
+
+    (pq, pq_s), got = launches(lambda: timed(lambda: ShardedGraphIndex(
+        corpus, mesh, "l2", graph_degree=r, engine="pq",
+        adjacency_shards=graph.adjacency_shards,
+        medoids=graph.medoids_host)), fb, pb)
+    (pi, _), got_s = launches(lambda: pq.search(queries, k=10,
+                                                beam_width=beam), fb, pb)
+    rows["pq"] = {"engine": pq.engine, "init_s": pq_s, "m": pq.pq_m,
+                  "recall10": recall_at(pi, oracle),
+                  "launches_init": got[fb] + got[pb],
+                  "launches_search": got_s[pb],
+                  "launches_fused": got_s[fb]}
+
+    for name, make, kw in (
+            ("ivf", lambda: ShardedIvfIndex(
+                corpus, mesh, "l2", n_clusters=IVF_CLUSTERS // SHARDS), {}),
+            ("ivf8", lambda: ShardedIvf8Index(corpus, mesh, "l2"), {})):
+        (index, init_s), got = launches(lambda: timed(make), fb, pb)
+        (ii, _), search_s = timed(lambda: index.search(
+            queries, k=10, nprobe=NPROBE, **kw))
+        rows[name] = {"init_s": init_s, "search_s": search_s,
+                      "buckets": index.n_buckets, "nprobe": NPROBE,
+                      "recall10": recall_at(ii, oracle),
+                      "launches": sum(got.values())}
+        del index
+
+    meta = IndexMeta.load(meta_path(rag_base))
+    rag_qh = rag_q.cpu().numpy()
+    loads = []
+    for _ in range(2):
+        (s_, load_s), got = launches(lambda: timed(lambda: load_searcher(
+            rag_base, meta, sharded=True, device=dev)), fb, pb)
+        (idx, sc), search_s = timed(lambda: s_.search(rag_qh, k=10))
+        loads.append({"load_s": load_s, "search_s": search_s,
+                      "launches_load": got[fb], "n_shards": s_.n_shards,
+                      "engine": s_.index.engine, "ids": idx, "scores": sc,
+                      "mtime": os.path.getmtime(shardfile.shards_path(
+                          rag_base))})
+        del s_
+    hit1 = float(np.mean(loads[0]["ids"][:, 0] == pick))
+    rows["rag"] = {
+        "self_hit1": hit1,
+        "reload_equal": bool(
+            np.array_equal(loads[0]["ids"], loads[1]["ids"])
+            and np.array_equal(loads[0]["scores"], loads[1]["scores"])),
+        "sidecar_reused": loads[0]["mtime"] == loads[1]["mtime"]
+        and loads[1]["launches_load"] == 0,
+        **{f"load{i}_{k}": v for i, ld in enumerate(loads)
+           for k, v in ld.items() if k not in ("ids", "scores", "mtime")}}
+    emit({"phase": "sharded", "n": n, "d": corpus.shape[1],
+          "shards": SHARDS, "mesh": mesh.shape, "r": r, "build_l": build_l,
+          "queries": len(queries), **rows,
+          "peak_bytes": torch.cuda.max_memory_allocated(dev),
+          "bytes_before": base_bytes,
+          "phase_s": time.perf_counter() - t_phase})
+
+    bad = []
+    if rows["flat"]["recall10"] < SHARDED_FLAT_MIN_RECALL or \
+            not rows["flat"]["ids_equal_2x2"]:
+        bad.append("flat")
+    g = rows["graph"]
+    if g["engine"] != "fused" or g["recall10"] < SHARDED_MIN_RECALL or \
+            g["launches_build"] <= 0 or g["launches_search"] <= 0 or \
+            g["launches_pq"]:
+        bad.append("graph")
+    if rows["pq"]["recall10"] < SHARDED_PQ_MIN_RECALL or \
+            rows["pq"]["launches_search"] <= 0 or rows["pq"]["launches_fused"]:
+        bad.append("pq")
+    if rows["ivf"]["recall10"] < SHARDED_IVF_MIN_RECALL or \
+            rows["ivf"]["launches"]:
+        bad.append("ivf")
+    if rows["ivf8"]["recall10"] < SHARDED_IVF8_MIN_RECALL or \
+            rows["ivf8"]["launches"]:
+        bad.append("ivf8")
+    if hit1 < 0.99 or not rows["rag"]["reload_equal"] or \
+            not rows["rag"]["sidecar_reused"] or loads[0]["n_shards"] != 1:
+        bad.append("rag")
+    if bad:
+        raise AssertionError(f"sharded: {bad} failed their gates")
+    return graph, pq, windows[0][0]
+
+
 def build_args(eng, q, ids, beam):
     """B1's arguments in the builder's final pass at complexity `beam`
     (max_iters 2L+16, visited log 2L, two expansions) on eng's graph."""
@@ -1913,7 +2111,8 @@ def build_args(eng, q, ids, beam):
         track_visited=2 * beam)
 
 
-def phase_kernels_main(torch, rag, sift, deep, ivf, ivf8, gather, recompute):
+def phase_kernels_main(torch, rag, sift, deep, ivf, ivf8, gather, recompute,
+                       sharded):
     """Each kernel against its plain version at the shapes the main paths
     launched it with. The build cases take the builder's final-pass
     arguments (L = complexity, max_iters 2L+16, visited log 2L, medoid
@@ -1945,6 +2144,9 @@ def phase_kernels_main(torch, rag, sift, deep, ivf, ivf8, gather, recompute):
         ("recompute build L48", build_args(rc_eng, rc_q, rc_ids, 48), 10),
     ] + [(f"recompute search L{beam}", rc_eng.kernel_args(
         rc_q, none(rc_q), beam), 10) for beam in RECOMPUTE_BEAMS]
+    sh_graph, sh_pq, sh_q = sharded
+    cases.append(("sharded search shard 0",
+                  sh_graph.kernel_args(sh_q, 64, shard=0), 5))
     rows = [check_case(torch, label, kw, reps) for label, kw, reps in cases]
     emit({"phase": "kernels_main", "kernel": FUSED["name"], "cases": rows,
           "library_ms": None})
@@ -1952,6 +2154,8 @@ def phase_kernels_main(torch, rag, sift, deep, ivf, ivf8, gather, recompute):
     deep_eng, deep_q = deep
     pq_rows = [check_case_pq(torch, f"deep search L{beam}", deep_eng.kernel_args(
         deep_q, none(deep_q), beam), 5) for beam in (64, DEEP_BEAM)]
+    pq_rows.append(check_case_pq(torch, "sharded pq search shard 0",
+                                 sh_pq.kernel_args(sh_q, 64, shard=0), 5))
     emit({"phase": "kernels_main", "kernel": PQ["name"], "cases": pq_rows,
           "library_ms": None})
 
@@ -2012,23 +2216,30 @@ def main() -> int:
                 GATHER["name"]: gather_score}
     launches = dict.fromkeys(wrappers, 0)
 
-    def drive(phase, kernel, n, *extra):
+    def drive(phase, kernels, n, *extra):
         """One main-path phase, every count set to 0 just before it and
-        read just after; the phase's kernel must have launched and no
-        other kernel may (with kernel None, no kernel may launch).
-        `extra` goes to the phase."""
+        read just after; each kernel named in `kernels` must have
+        launched and no other kernel may (with none named, no kernel may
+        launch). The phase gets counter(*names): the launches so far of
+        the named kernels (default: its own, or every kernel when it has
+        none). `extra` goes to the phase."""
+        kernels = tuple(kernels)
         for w in wrappers.values():
             w.launches = 0
-        count = ((lambda: sum(w.launches for w in wrappers.values()))
-                 if kernel is None else (lambda: wrappers[kernel].launches))
+
+        def count(*names):
+            return sum(wrappers[k].launches
+                       for k in (names or kernels or wrappers))
+
         out = phase(torch, dev, n, count, *extra)
         got = {k: w.launches for k, w in wrappers.items()}
         emit({"phase": phase.__name__[len("phase_"):], "launches": got})
-        if kernel is not None and got[kernel] <= 0:
-            raise AssertionError(f"{phase.__name__}: {kernel} never launched")
-        if any(v for k, v in got.items() if k != kernel):
+        for k in kernels:
+            if got[k] <= 0:
+                raise AssertionError(f"{phase.__name__}: {k} never launched")
+        if any(v for k, v in got.items() if k not in kernels):
             raise AssertionError(f"{phase.__name__}: a kernel other than "
-                                 f"{kernel} launched")
+                                 f"{kernels} launched")
         for k in got:
             launches[k] += got[k]
         return out
@@ -2042,19 +2253,26 @@ def main() -> int:
     dots_grid, ivf8_grid = phase_kernels_ivf(torch, dev)
     gather_grid = phase_kernels_gather(torch, dev)
 
-    rag = drive(phase_rag, FUSED["name"], RAG_N)
-    sift = drive(phase_sift, FUSED["name"], SIFT_N)
-    deep = drive(phase_deep, PQ["name"], DEEP_N)
-    *ivf, ivf_data = drive(phase_ivf, DOTS["name"], IVF_N)
-    *ivf8, ivf8_data = drive(phase_ivf8, IVF8["name"], IVF8_N)
-    gather = drive(phase_gather, GATHER["name"], GATHER_N)
-    drive(phase_ivfpq, None, IVF8_N, ivf8_data, ivf_data)
-    del ivf_data, ivf8_data
-    drive(phase_rag_ivf, None, RAG_N)
-    drive(phase_encode, FUSED["name"], RAG_N, rag[3])
-    recompute = drive(phase_recompute, FUSED["name"], RECOMPUTE_N)
+    rag_root = tempfile.mkdtemp(prefix="chip_smoke_rag_")
+    try:
+        rag = drive(phase_rag, [FUSED["name"]], RAG_N, rag_root)
+        *sift, sift_data = drive(phase_sift, [FUSED["name"]], SIFT_N)
+        deep = drive(phase_deep, [PQ["name"]], DEEP_N)
+        *ivf, ivf_data = drive(phase_ivf, [DOTS["name"]], IVF_N)
+        *ivf8, ivf8_data = drive(phase_ivf8, [IVF8["name"]], IVF8_N)
+        gather = drive(phase_gather, [GATHER["name"]], GATHER_N)
+        drive(phase_ivfpq, (), IVF8_N, ivf8_data, ivf_data)
+        del ivf_data, ivf8_data
+        drive(phase_rag_ivf, (), RAG_N)
+        drive(phase_encode, [FUSED["name"]], RAG_N, rag[3])
+        recompute = drive(phase_recompute, [FUSED["name"]], RECOMPUTE_N)
+        sharded = drive(phase_sharded, [FUSED["name"], PQ["name"]],
+                        SHARDED_N, sift_data, rag[4], rag[1], rag[2])
+    finally:
+        shutil.rmtree(rag_root, ignore_errors=True)
+    del sift_data
     main_rows, pq_main, dots_main, ivf8_main, gather_main = phase_kernels_main(
-        torch, rag, sift, deep, ivf, ivf8, gather, recompute)
+        torch, rag, sift, deep, ivf, ivf8, gather, recompute, sharded)
 
     # the table rows: times at each kernel's serving shape (sift search,
     # 1M, B=2048; deep search, 1M, B=2048, beam DEEP_BEAM; ivf search,
@@ -2064,7 +2282,9 @@ def main() -> int:
     for info, serve, all_rows in (
             (FUSED, next(c for c in main_rows if c["case"] == "sift search"),
              rows + main_rows),
-            (PQ, pq_main[-1], pq_grid + pq_main),
+            (PQ, next(c for c in pq_main
+                      if c["case"] == f"deep search L{DEEP_BEAM}"),
+             pq_grid + pq_main),
             (DOTS, dots_main[-1], dots_grid + dots_main),
             (IVF8, next(c for c in ivf8_main
                         if c["case"] == "ivf8 search B2048"),

@@ -9,7 +9,8 @@
           for that
 
 A searcher takes a *batch* of query vectors. Every searcher runs on
-`device` (default cuda; see `leann_tpu_torch.device`).
+`device` (default cuda; see `leann_tpu_torch.device`); `ShardedSearcher`
+runs on a mesh of devices (`parallel/`).
 """
 
 from __future__ import annotations
@@ -36,11 +37,6 @@ def resolve_backend(name: str) -> str:
             f"(aliases: {sorted(ALIASES)})"
         )
     return name
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to leann_tpu_torch yet (ROADMAP: {item})")
 
 
 class FlatSearcher:
@@ -241,10 +237,106 @@ def _pq_engine(vectors, graph, metric, base, dev):
     return engine
 
 
+class ShardedSearcher:
+    """Corpus row-sharded search over a mesh of devices
+    (`parallel/sharded.py`) behind the backend-searcher interface.
+    Dispatches on the index's backend: flat -> ShardedFlatIndex, vamana
+    -> ShardedGraphIndex (one subgraph per shard), ivf ->
+    ShardedIvfIndex (per-shard k-means).
+
+    `devices` lists the mesh's devices, all on the shard axis (default:
+    every CUDA device; a device may repeat, e.g. `["cpu"] * 8`).
+    Per-shard graph/IVF structures are expensive to build, so they
+    persist to `<base>.shards.npz` (`store/shardfile.py`, the reference's
+    format): the first sharded load builds and saves; later loads with
+    the same shard count reuse it."""
+
+    def __init__(self, vectors: np.ndarray, metric: str = "ip",
+                 backend: str = "flat", base: str = "", devices=None):
+        from leann_tpu_torch.parallel import (
+            ShardedFlatIndex, ShardedGraphIndex, ShardedIvfIndex,
+            init_distributed, make_mesh,
+        )
+        from leann_tpu_torch.store import shardfile
+
+        # the multi-process contract (a no-op in one process) comes
+        # before the mesh, which counts the processes' shards
+        init_distributed()
+        mesh = make_mesh(devices=devices)
+        self.n_shards = mesh.shape["shard"]
+        self.backend = resolve_backend(backend)
+        vectors = np.asarray(vectors)
+        art = (
+            shardfile.load_shards(
+                base, self.n_shards, n=len(vectors), metric=metric
+            )
+            if base else None
+        )
+        save = bool(base) and mesh.process_index == 0
+
+        if self.backend == "vamana":
+            if art is not None and art["kind"] == "graph":
+                self.index = ShardedGraphIndex(
+                    vectors, mesh, metric=metric,
+                    adjacency_shards=art["adjacency"],
+                    medoids=art["medoids"],
+                )
+            else:
+                self.index = ShardedGraphIndex(vectors, mesh, metric=metric)
+                if save:
+                    shardfile.save_graph_shards(
+                        base, self.index.adjacency_shards,
+                        self.index.medoids_host, self.index.n, metric,
+                    )
+        elif self.backend == "ivf":
+            if art is not None and art["kind"] == "ivf":
+                self.index = ShardedIvfIndex(
+                    vectors, mesh, metric=metric,
+                    centers_shards=art["centers_list"],
+                    assign_shards=art["assign_list"],
+                )
+            else:
+                self.index = ShardedIvfIndex(vectors, mesh, metric=metric)
+                if save:
+                    shardfile.save_ivf_shards(
+                        base, self.index.centers_host,
+                        self.index.assign_host, self.index.n, metric,
+                    )
+        else:
+            self.index = ShardedFlatIndex(vectors, mesh, metric=metric)
+
+    def __len__(self) -> int:
+        return self.index.n
+
+    def search(
+        self, queries: np.ndarray, k: int, complexity: int = 64
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        if self.backend == "vamana":
+            return self.index.search(
+                queries, k=k, beam_width=max(complexity, k)
+            )
+        if self.backend == "ivf":
+            return self.index.search(
+                queries, k=k, nprobe=max(complexity // 2, 8)
+            )
+        return self.index.search(queries, k=k)
+
+
 def load_searcher(base: str, meta, sharded: bool = False,
-                  device: DeviceLike = None):
+                  device=None):
+    """The searcher of the index at `base`. `device` is one device; for a
+    sharded searcher it may also list the mesh's devices (one shard
+    each; default: every CUDA device)."""
     if sharded:
-        raise _not_ported("sharded search", "Queue A 12, sharding")
+        from leann_tpu_torch.store.embeddings import EmbeddingsStore
+
+        devices = (list(device) if isinstance(device, (list, tuple))
+                   else None if device is None else [device])
+        vectors = EmbeddingsStore(base, meta.dimensions).all()
+        return ShardedSearcher(
+            np.asarray(vectors), metric=getattr(meta, "metric", "ip"),
+            backend=meta.backend_name, base=base, devices=devices,
+        )
     return _load_local_searcher(base, meta, device)
 
 
@@ -261,9 +353,18 @@ def _load_local_searcher(base: str, meta, device: DeviceLike = None):
         kw = getattr(meta, "backend_kwargs", None) or {}
         return IvfSearcher(vectors, ivf, metric=metric,
                            default_nprobe=kw.get("nprobe"), device=device)
-    if backend == "flat" or not GraphFile.exists(base):
-        # a graph meta with no graph file degrades to exact search, as in
-        # the reference
+    if backend == "flat":
+        return FlatSearcher(vectors, metric=metric, device=device)
+    if not GraphFile.exists(base):
+        # a hnsw/diskann meta with no graph file: probably an index built
+        # by Python LEANN or leann-rs, which the reference diagnoses
+        from leann_tpu_torch.backend.compat import sniff_foreign_index
+
+        diagnosis = sniff_foreign_index(
+            os.path.dirname(base), os.path.basename(base))
+        if diagnosis:
+            raise RuntimeError(diagnosis)
+        # no graph at all: degrade to exact search, as the reference does
         return FlatSearcher(vectors, metric=metric, device=device)
     graph = GraphFile.load(graph_path(base))
     return GraphSearcher(vectors, graph, metric=metric, base=base,

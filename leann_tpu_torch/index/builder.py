@@ -34,6 +34,7 @@ from leann_tpu_torch.store.passages import (
     write_ids,
 )
 from leann_tpu_torch.store.pqfile import invalidate_pq
+from leann_tpu_torch.store.shardfile import invalidate_shards
 from leann_tpu_torch.index.bm25 import Bm25Scorer, bm25_path
 from leann_tpu_torch.backend import resolve_backend
 
@@ -249,11 +250,10 @@ class StreamingIndexBuilder:
 
 def _invalidate_sidecars(base: str) -> None:
     """A rebuild at the same base invalidates sidecars derived from the
-    previous corpus: the PQ codes (`store/pqfile.py`) and the reference's
-    shard file (the name `leann_tpu/store/shardfile.py` writes)."""
+    previous corpus: the PQ codes (`store/pqfile.py`) and the per-shard
+    graphs or k-means (`store/shardfile.py`)."""
     invalidate_pq(base)
-    if os.path.exists(base + ".shards.npz"):
-        os.remove(base + ".shards.npz")
+    invalidate_shards(base)
 
 
 class IndexBuilder:

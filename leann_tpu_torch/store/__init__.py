@@ -10,6 +10,7 @@
   <base>.pq.npz              PQ codebooks and codes (store/pqfile.py)
   <base>.ivf.npz             IVF k-means centers and assignment (store/ivffile.py)
   <base>.tokens.npz          token ids and lengths for pruned recompute (store/tokens.py)
+  <base>.shards.npz          per-shard graphs or k-means (store/shardfile.py)
 """
 
 from leann_tpu_torch.store.passages import Passage, PassageStore, PassageStoreWriter

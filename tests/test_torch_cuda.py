@@ -20,7 +20,9 @@ same tolerance against their earlier designs (`csrc/*_pairs.cu`). The row
 gather (B5): within 1e-5 x |q| x (largest row norm), for the same
 reason. The recompute engine (no kernel of its own; the encoder's
 products are library calls) on the card against the CPU and with its
-dedup cache on against off: the tolerances in each test's docstring."""
+dedup cache on against off: the tolerances in each test's docstring.
+Sharded graphs (`parallel/sharded.py`, four shards on one card): B1 and
+B3 equal their plain versions exactly on each shard's arguments."""
 
 import numpy as np
 import pytest
@@ -821,3 +823,73 @@ def test_recompute_dedup_on_cuda_matches_uncached(dev, recompute_setup):
     np.testing.assert_allclose(cs, us, rtol=0, atol=1e-3)
     for a, b in zip(out[True, 0], out[True, 4]):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.fixture(scope="module")
+def sharded_graphs(dev):
+    """4 shards of a 4,000 x 128 l2 corpus on one card (R=24, L=48): the
+    auto engine (which must pick B1) and B3 on the same subgraphs."""
+    from leann_tpu_torch.parallel import ShardedGraphIndex, make_mesh
+
+    rng = np.random.default_rng(9)
+    n, d = 4000, 128
+    c = rng.standard_normal((32, d)).astype(np.float32) * 3
+    x = (c[rng.integers(0, 32, n)]
+         + rng.standard_normal((n, d)).astype(np.float32))
+    mesh = make_mesh((1, 4), devices=[dev] * 4)
+    fused = ShardedGraphIndex(x, mesh, metric="l2", graph_degree=24,
+                              complexity=48)
+    pq = ShardedGraphIndex(x, mesh, metric="l2", graph_degree=24,
+                           adjacency_shards=fused.adjacency_shards,
+                           medoids=fused.medoids_host, engine="pq")
+    q = x[rng.integers(0, n, 64)] + np.float32(0.1)
+    return x, q, fused, pq
+
+
+@pytest.mark.parametrize("engine", ["fused", "pq"])
+def test_sharded_kernels_equal_plain_per_shard(dev, sharded_graphs, engine):
+    """Four shards on cuda:0 (one copy each): B1 (auto's choice at
+    D=128) and B3 equal their plain versions exactly on every shard's
+    arguments, and a search launches the kernel once per shard."""
+    x, q, fused, pq = sharded_graphs
+    index = fused if engine == "fused" else pq
+    assert index.engine == engine
+    assert all(list(st) == [torch.device("cuda", 0)]
+               for st in index.state.values())
+    qt = torch.from_numpy(q).to(dev)
+    for shard in range(4):
+        kw = index.kernel_args(qt, 32, shard=shard)
+        if engine == "fused":
+            kernel_equals_plain(kw)
+        else:
+            pq_equal(kw)
+    wrapper = tf.fused_beam_search if engine == "fused" else tp.pq_beam_search
+    before = wrapper.launches
+    idx, _ = index.search(q, k=10, beam_width=32)
+    assert wrapper.launches == before + 4
+    from leann_tpu_torch.ops.distance import exact_topk
+
+    _, oracle = exact_topk(q, x, 10, metric="l2", device="cpu")
+    rec = np.mean([len(set(a.tolist()) & set(b.tolist())) / 10
+                   for a, b in zip(idx, oracle)])
+    assert rec >= 0.9, rec
+
+
+def test_sharded_search_on_cuda_matches_cpu(dev, sharded_graphs):
+    """The fused shards on the card against the same shards on a CPU
+    mesh (plain versions): top-10 overlap >= 0.99, scores rtol 1e-5 where
+    the ids agree, as for the one-device engine."""
+    from leann_tpu_torch.parallel import ShardedGraphIndex, make_mesh
+
+    x, q, fused, _ = sharded_graphs
+    cpu = ShardedGraphIndex(x, make_mesh((1, 4), devices=["cpu"] * 4),
+                            metric="l2", graph_degree=24,
+                            adjacency_shards=fused.adjacency_shards,
+                            medoids=fused.medoids_host, engine="fused")
+    gi, gs = fused.search(q, k=10, beam_width=32)
+    ci, cs = cpu.search(q, k=10, beam_width=32)
+    overlap = np.mean([len(set(a.tolist()) & set(b.tolist())) / 10
+                       for a, b in zip(gi, ci)])
+    assert overlap >= 0.99
+    same = gi == ci
+    np.testing.assert_allclose(gs[same], cs[same], rtol=1e-5)

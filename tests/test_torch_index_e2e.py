@@ -193,6 +193,22 @@ def test_port_imports_no_jax_and_no_reference(tmp_path):
                                   np.zeros((200, 8), np.int32), 0, enc,
                                   device="cpu")
         assert eng.search(enc.embed(texts[:1]), k=3)[0].shape == (1, 3)
+        from leann_tpu_torch.backend import ShardedSearcher
+        from leann_tpu_torch.backend.compat import sniff_foreign_index
+        from leann_tpu_torch.parallel import (
+            ShardedFlatIndex, ShardedGraphIndex, ShardedIvf8Index,
+            ShardedIvfIndex, init_distributed, make_mesh)
+        from leann_tpu_torch.store import shardfile
+        assert init_distributed() is False
+        mesh = make_mesh((1, 2), devices=["cpu"] * 2)
+        for cls in (ShardedFlatIndex, ShardedGraphIndex, ShardedIvfIndex,
+                    ShardedIvf8Index):
+            assert cls(vecs, mesh).search(vecs[:1], k=3)[0][0, 0] == 0
+        s = IndexSearcher.load(base + "2", sharded=True,
+                               device=["cpu"] * 2)
+        assert isinstance(s.backend, ShardedSearcher)
+        assert shardfile.load_shards(base + "2", 2) is not None
+        assert sniff_foreign_index(os.path.dirname(base)) is None
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m.startswith("jaxlib") or m == "leann_tpu"
@@ -225,13 +241,15 @@ def test_cuda_requested_without_cuda_raises(monkeypatch, tmp_path):
 
 
 def test_unported_backends_raise(tmp_path, monkeypatch):
-    """Sharded search raises, naming its ROADMAP item; the ivf backend
-    builds and loads, and under LEANN_IVF_ENGINE=pq it serves the IVF-PQ
-    engine."""
+    """Every backend is ported now: sharded search serves (one shard on
+    the one device given); the ivf backend builds and loads, and under
+    LEANN_IVF_ENGINE=pq it serves the IVF-PQ engine."""
     base = str(tmp_path / "i" / "documents.leann")
-    _build(IndexBuilder, base, _texts(50), "flat", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        IndexSearcher.load(base, sharded=True, device="cpu")
+    vecs = _build(IndexBuilder, base, _texts(50), "flat", device="cpu")
+    sharded = IndexSearcher.load(base, sharded=True, device="cpu")
+    assert type(sharded.backend).__name__ == "ShardedSearcher"
+    assert sharded.backend.n_shards == 1
+    assert sharded.search(vecs[:1])[0][0].id == "d0"
     ivf = str(tmp_path / "ivf" / "documents.leann")
     _build(IndexBuilder, ivf, _texts(50), "ivf", device="cpu")
     assert IndexSearcher.load(ivf, device="cpu").backend.engine.n == 50
@@ -262,3 +280,58 @@ def test_fake_embedder_matches_reference():
     np.testing.assert_array_equal(
         FakeEmbedding(D).embed(texts),
         EmbeddingProvider(mode="fake", dimensions=D).embed(texts))
+
+
+def test_foreign_index_detection(tmp_path):
+    """The port's sniff gives the reference's diagnosis, word for word, on
+    FAISS magics, a usearch file (magic at offset 0, or after a u32
+    vector-matrix section) and unknown bytes."""
+    import struct
+
+    from leann_tpu.backend.compat import sniff_foreign_index as jax_sniff
+    from leann_tpu_torch.backend.compat import sniff_foreign_index
+
+    d = tmp_path / "idx"
+    d.mkdir()
+    assert sniff_foreign_index(str(d)) is None is jax_sniff(str(d))
+    path = d / "documents.leann.index"
+    path.write_bytes(b"IxF2" + b"\x00" * 64)
+    msg = sniff_foreign_index(str(d))
+    assert msg is not None and "FAISS" in msg and "--force" in msg
+    assert msg == jax_sniff(str(d))
+    path.write_bytes(b"usearch-binary-here")
+    msg = sniff_foreign_index(str(d))
+    assert "usearch" in msg and "reindex" in msg
+    assert msg == jax_sniff(str(d))
+    path.write_bytes(struct.pack("<II", 2, 4) + b"\x01" * 8 + b"usearch"
+                     + b"\x00" * 64)
+    assert "reindex" in sniff_foreign_index(str(d))
+    assert sniff_foreign_index(str(d)) == jax_sniff(str(d))
+    path.write_bytes(b"\x07" * 40)
+    msg = sniff_foreign_index(str(d))
+    assert "usearch (leann-rs)" in msg and "--force" in msg
+    assert msg == jax_sniff(str(d))
+
+
+def test_load_searcher_raises_on_foreign_index(tmp_path):
+    """A graph meta with no graph file beside a FAISS `.index` raises the
+    reference's RuntimeError instead of serving exact search; with no
+    foreign file it still degrades to exact search."""
+    from leann_tpu.backend import load_searcher as jax_load_searcher
+    from leann_tpu.store.meta import IndexMeta as JaxIndexMeta
+    from leann_tpu_torch.backend import FlatSearcher, load_searcher
+    from leann_tpu_torch.store.embeddings import EmbeddingsWriter
+    from leann_tpu_torch.store.meta import IndexMeta
+
+    base = str(tmp_path / "documents.leann")
+    with EmbeddingsWriter(base, 8) as w:
+        w.add(np.zeros((4, 8), np.float32))
+    meta = IndexMeta(backend_name="hnsw", dimensions=8)
+    assert isinstance(load_searcher(base, meta, device="cpu"), FlatSearcher)
+    (tmp_path / "documents.leann.index").write_bytes(b"IxFl" + b"\x00" * 16)
+    with pytest.raises(RuntimeError, match="FAISS") as got:
+        load_searcher(base, meta, device="cpu")
+    with pytest.raises(RuntimeError) as want:
+        jax_load_searcher(base, JaxIndexMeta(backend_name="hnsw",
+                                             dimensions=8))
+    assert str(got.value) == str(want.value)
