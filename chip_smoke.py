@@ -8,7 +8,8 @@ calls (Vamana build -> fused graph search at D % 128 == 0; Vamana build
 residual-int8 IVF serving tier and the IVF-PQ tier at 10M x 96; the
 row-gather roofline; the BERT encoder at bert-base widths and `entry()`;
 pruned recompute, BASELINE config 3 at 100k passages; sharded search
-over four shards of one card), builds the CUDA kernels from
+over four shards of one card; the library surface, `Index` /
+`open_index`, RAG ask and the ReAct agent), builds the CUDA kernels from
 `leann_tpu_torch/csrc/` (one nvcc per source, all started together), and
 holds each against its plain PyTorch version. Phases, one JSON line each
 on stdout:
@@ -135,6 +136,22 @@ on stdout:
            writes `.shards.npz`, the second reuses it (no B1 launch, the
            same mtime) with ids and scores equal; self-hit@1; peak
            memory. B1 and B3 must launch, no other kernel
+  api      the library surface on the rag phase's index:
+           open_index(dir, device) (the fake 768-d provider rebuilt from
+           the meta; the first search's seconds apart), Index.search one
+           passage text per call (self-hit@1, host ms p50 / p99),
+           Index.search_vectors on the 256 query vectors (recall@10 within
+           0.002 of the rag phase's at complexity 64; ms per batch by
+           CUDA events, through the library call and the engine alone), a
+           filter (n<10000), auto hybrid on a word pair that only one
+           passage holds (it ranks first), expansion (on_expand fires),
+           AskSession on 8 passage texts (the passage is the first
+           source) and ReActAgent (it finishes, its observation lists
+           hit ids) with the simulated LLM; then 2,000 passages embedded
+           by `local-tiny`, built (hnsw ip R=32 L=48, token sidecar),
+           pruned and opened: Index.search must pick
+           GraphRecomputeSearcher, self-hit@1 on 64 stored texts; per
+           step seconds and peak memory. B1 must launch, no other kernel
   kernels_main
            each kernel vs its plain version at every shape the main
            paths launched it with: fused_beam_search at rag build (D=768,
@@ -154,7 +171,7 @@ on stdout:
 
 The counts of kernel launches are set to 0 just before each main-path
 phase (rag, sift, deep, ivf, ivf8, gather, ivfpq, rag_ivf, encode,
-recompute, sharded) and read just after it. Any failure exits
+recompute, sharded, api) and read just after it. Any failure exits
 non-zero with no `ok` line. The last lines are the kernel table, the
 card's `nvidia-smi` name and power limit, and {"ok": true, "device": ...}.
 """
@@ -965,7 +982,9 @@ def phase_kernels_gather(torch, dev):
 
 def rag_texts(n_docs):
     rng = np.random.default_rng(11)
-    words = [f"w{i}" for i in range(5000)]
+    # an array, not a list: `choice` would convert a list on every draw
+    # (the same draws either way, 30x slower)
+    words = np.array([f"w{i}" for i in range(5000)])
     return rng, [f"passage {i}: " + " ".join(rng.choice(words, 24))
                  for i in range(n_docs)]
 
@@ -2100,6 +2119,209 @@ def phase_sharded(torch, dev, n, counter, sift, rag_base, rag_q, pick):
     return graph, pq, windows[0][0]
 
 
+def unique_pair(texts, j):
+    """Two words of texts[j] that occur together in no other passage (the
+    rag corpus: random words of a 5,000-word vocabulary)."""
+    post = defaultdict(set)
+    for i, t in enumerate(texts):
+        for w in t.split()[2:]:
+            post[w].add(i)
+    words = [w for w in dict.fromkeys(texts[j].split()[2:])
+             if texts[j].split().count(w) == 1]
+    for a in range(len(words)):
+        for b in range(a + 1, len(words)):
+            if post[words[a]] & post[words[b]] == {j}:
+                return words[a], words[b]
+    raise AssertionError(f"api: passage {j} holds no unique word pair")
+
+
+def phase_api(torch, dev, n_docs, counter, base, q, pick, rag_row):
+    """The library surface on the rag phase's index (BASELINE config 0),
+    through the calls a user makes: `open_index(dir, device=dev)` (the
+    provider rebuilt from the meta), `Index.search` one text per call,
+    `Index.search_vectors` on the batch, a filter, auto hybrid and
+    expansion, `AskSession` and `ReActAgent` with the simulated LLM; then
+    a pruned `local-tiny` index, which `Index.search` must serve through
+    `GraphRecomputeSearcher`. B1 serves every stored-vector search."""
+    from leann_tpu_torch import open_index
+    from leann_tpu_torch.agent.react import ReActAgent, parse_action
+    from leann_tpu_torch.embed import EmbeddingProvider
+    from leann_tpu_torch.index import IndexSearcher, StreamingIndexBuilder
+    from leann_tpu_torch.index.recompute import GraphRecomputeSearcher
+    from leann_tpu_torch.llm import LlmProvider
+    from leann_tpu_torch.ops.distance import ExactEngine
+    from leann_tpu_torch.rag.ask import AskSession
+    from leann_tpu_torch.store.embeddings import EmbeddingsStore, prune_embeddings
+    from leann_tpu_torch.store.meta import IndexMeta, meta_path
+    from leann_tpu_torch.store.passages import Passage
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base_bytes = torch.cuda.memory_allocated(dev)   # what earlier phases hold
+    row, bad, steps_s = {}, [], {}
+    t_step = [t_phase]
+
+    def lap(name):
+        now = time.perf_counter()
+        steps_s[name] = now - t_step[0]
+        t_step[0] = now
+
+    _, texts = rag_texts(n_docs)
+    lap("texts")
+
+    # 1. open by directory; the first search loads and packs the engine
+    idx = open_index(os.path.dirname(base), device=dev)
+    row["provider"] = [idx.provider.mode, idx.provider.dimensions]
+    if row["provider"] != ["fake", q.shape[1]]:
+        bad.append("provider from the meta")
+    c0 = counter()
+    t0 = time.perf_counter()
+    idx.search(texts[pick[0]], top_k=10, hybrid=False, expand=False)
+    row["first_search_s"] = time.perf_counter() - t0
+    row["engine"] = type(idx._stored_searcher().backend.engine).__name__
+
+    # 2. one text per call
+    wall, hits = [], []
+    for i in pick:
+        t0 = time.perf_counter()
+        res = idx.search(texts[i], top_k=10, hybrid=False, expand=False)
+        wall.append((time.perf_counter() - t0) * 1e3)
+        hits.append(bool(res) and res[0].id == f"p{i}")
+    row["text_self_hit1"] = float(np.mean(hits))
+    row["text_ms_p50"], row["text_ms_p99"] = (
+        float(np.percentile(wall, 50)), float(np.percentile(wall, 99)))
+    row["launches_text"] = counter() - c0
+    if row["text_self_hit1"] < 0.99:
+        bad.append("text self-hit@1")
+    lap("open_and_text")
+
+    # 3. the batch of vectors: the rag phase's engine and batch
+    qh = q.cpu().numpy()
+    vecs = np.asarray(EmbeddingsStore(base, qh.shape[1]).all())
+    oracle = ExactEngine(vecs, metric="ip", device=dev).search(
+        qh, k=10, exact_scan=True)[0]
+    c0 = counter()
+    res = idx.search_vectors(qh, top_k=10, complexity=64)
+    got = [[int(h.id[1:]) for h in r] + [-1] * (10 - len(r)) for r in res]
+    row["vectors_recall10"] = recall_at(got, oracle)
+    row["rag_recall10_at_64"] = rag_row["recall10_at_complexity_64"]
+    if abs(row["vectors_recall10"] - row["rag_recall10_at_64"]) > 0.002:
+        bad.append("search_vectors recall")
+    windows = [np.stack([qh, qh]) for _ in range(3)]
+    ms, qps = qps_windows(
+        torch, lambda x: idx.search_vectors(x, top_k=10, complexity=64),
+        windows)
+    row["vectors_ms_per_batch"], row["vectors_qps"] = ms, qps
+    engine = idx._stored_searcher().backend
+    ms, qps = qps_windows(
+        torch, lambda x: engine.search(x, k=50, complexity=64), windows)
+    row["engine_ms_per_batch"], row["engine_qps"] = ms, qps
+    row["launches_vectors"] = counter() - c0
+    lap("vectors")
+
+    # 4. a filter, auto hybrid on two words, expansion
+    c0 = counter()
+    ok, n_hits = True, []
+    for i in pick[:32]:
+        res = idx.search(texts[i], top_k=10, filter="n<10000", hybrid=False,
+                         expand=False)
+        n_hits.append(len(res))
+        ok &= bool(res) and all(h.metadata["n"] < 10000 for h in res)
+    row["filter_ok"], row["filter_hits_mean"] = ok, float(np.mean(n_hits))
+    if not ok:
+        bad.append("filter")
+    j = int(pick[1])
+    pair = " ".join(unique_pair(texts, j))
+    res = idx.search(pair, top_k=10, expand=False, hybrid_alpha=0.2)
+    row["hybrid_query"], row["hybrid_top"] = pair, res[0].id if res else None
+    if row["hybrid_top"] != f"p{j}":
+        bad.append("hybrid")
+    fired = []
+    idx.search(pair, top_k=10, on_expand=fired.append)
+    row["expanded"] = fired
+    if fired != [idx._stored_searcher().expand_query(pair)]:
+        bad.append("expand")
+    row["launches_filter_hybrid"] = counter() - c0
+    lap("filter_hybrid_expand")
+
+    # 5. RAG and the agent over a searcher of their own
+    c0 = counter()
+    searcher = IndexSearcher.load(base, device=dev)
+    llm = LlmProvider("simulated")
+    session = AskSession(searcher, idx.provider, llm)
+    asked = [session.ask(texts[i]) for i in pick[:8]]
+    row["ask_first_source_ok"] = sum(
+        a.sources[0].id == f"p{i}" for a, i in zip(asked, pick[:8]))
+    if row["ask_first_source_ok"] != 8:
+        bad.append("ask")
+    agent = ReActAgent(searcher, idx.provider, llm, max_steps=4)
+    answer, steps = agent.run(f"which passage mentions {pair}?")
+    last = parse_action(steps[-1].thought_action)
+    row["agent_steps"] = len(steps)
+    row["agent_observation"] = (steps[0].observation or "")[:80]
+    if not (len(steps) <= agent.max_steps and last is not None
+            and last.kind == "finish" and last.arg == answer
+            and "(p" in (steps[0].observation or "")):
+        bad.append("agent")
+    row["launches_rag_agent"] = counter() - c0
+    del searcher, idx, engine
+    lap("rag_agent")
+
+    # 6. a pruned local-tiny index: Index picks the graph recompute path
+    with tempfile.TemporaryDirectory() as tmp:
+        pbase = os.path.join(tmp, "indexes", "pruned", "documents.leann")
+        ptexts = recompute_texts(2000)
+        prov = EmbeddingProvider(mode="local", model="local-tiny", device=dev)
+        builder = StreamingIndexBuilder(
+            pbase, dim=prov.dimensions, backend="hnsw", metric="ip",
+            embedding_model="local-tiny", embedding_mode="local",
+            is_recompute=True, tokenizer_encoder=prov._impl.encoder,
+            device=dev)
+        for i, (t, v) in enumerate(zip(ptexts, prov.embed(ptexts))):
+            builder.add_passage(Passage(id=f"p{i}", text=t,
+                                        metadata={"facet": i % 37}), v)
+        c0 = counter()
+        t0 = time.perf_counter()
+        builder.build(graph_degree=32, complexity=48)
+        row["pruned_build_s"] = time.perf_counter() - t0
+        row["launches_pruned_build"] = counter() - c0
+        prune_embeddings(pbase)
+        meta = IndexMeta.load(meta_path(pbase))
+        meta.is_pruned = True
+        meta.save(meta_path(pbase))
+        pidx = open_index(os.path.dirname(pbase), device=dev)
+        sel = np.random.default_rng(3).choice(len(ptexts), 64, replace=False)
+        lap("pruned_build")
+        res, wall = [], []
+        for i in sel:
+            t0 = time.perf_counter()
+            res.append(pidx.search(ptexts[i], top_k=10))
+            wall.append((time.perf_counter() - t0) * 1e3)
+        row["pruned_first_ms"] = wall[0]
+        row["pruned_ms_p50"], row["pruned_ms_p99"] = (
+            float(np.percentile(wall, 50)), float(np.percentile(wall, 99)))
+        row["pruned_last_stats"] = dict(
+            pidx._recompute_searcher().engine.last_stats)
+        row["pruned_searcher"] = type(pidx._recompute_searcher()).__name__
+        row["pruned_self_hit1"] = float(np.mean(
+            [bool(r) and r[0].id == f"p{i}" for r, i in zip(res, sel)]))
+        if not isinstance(pidx._recompute_searcher(), GraphRecomputeSearcher):
+            bad.append("pruned searcher")
+        if row["pruned_self_hit1"] < 0.99:
+            bad.append("pruned self-hit@1")
+        del pidx, prov, builder
+    lap("pruned_search")
+
+    emit({"phase": "api", "n": n_docs, "queries": len(pick), **row,
+          "steps_s": steps_s,
+          "peak_bytes": torch.cuda.max_memory_allocated(dev),
+          "bytes_before": base_bytes,
+          "phase_s": time.perf_counter() - t_phase})
+    if bad:
+        raise AssertionError(f"api: {bad} failed their gates")
+    return row
+
+
 def build_args(eng, q, ids, beam):
     """B1's arguments in the builder's final pass at complexity `beam`
     (max_iters 2L+16, visited log 2L, two expansions) on eng's graph."""
@@ -2268,6 +2490,8 @@ def main() -> int:
         recompute = drive(phase_recompute, [FUSED["name"]], RECOMPUTE_N)
         sharded = drive(phase_sharded, [FUSED["name"], PQ["name"]],
                         SHARDED_N, sift_data, rag[4], rag[1], rag[2])
+        drive(phase_api, [FUSED["name"]], RAG_N, rag[4], rag[1], rag[2],
+              rag[3])
     finally:
         shutil.rmtree(rag_root, ignore_errors=True)
     del sift_data

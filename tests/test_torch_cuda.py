@@ -740,6 +740,39 @@ def test_ivf_pq_engine_on_cuda_matches_cpu(dev):
     np.testing.assert_allclose(gs[same], cs[same], rtol=1e-5, atol=1e-4)
 
 
+def test_index_on_cuda_matches_cpu(dev, tmp_path, monkeypatch):
+    """The library surface: `Index(..., device="cuda").search_vectors`
+    on a small hnsw index (2,000 fake-embedded 128-d passages) serves B1
+    (auto's choice on the card) and returns the ids of the same index
+    opened with device="cpu", where `LEANN_GRAPH_ENGINE=fused` makes the
+    same engine run B1's plain version; one batch of 50 stored rows, ids
+    equal, scores within rtol 1e-5."""
+    from leann_tpu_torch.api import Index
+    from leann_tpu_torch.embed.fake import FakeEmbedding
+    from leann_tpu_torch.index import IndexBuilder
+
+    texts = [f"passage {i} on topic {i % 17}" for i in range(2000)]
+    vecs = FakeEmbedding(128).embed(texts)
+    base = str(tmp_path / "idx" / "documents.leann")
+    builder = IndexBuilder(base, dim=128, backend="hnsw", device=dev)
+    for i, (t, v) in enumerate(zip(texts, vecs)):
+        builder.add(f"p{i}", t, v, {"n": i})
+    builder.build(graph_degree=16, complexity=32)
+    q = vecs[::40]
+    gpu = Index(base, device="cuda")
+    before = tf.fused_beam_search.launches
+    got = gpu.search_vectors(q, top_k=10)
+    assert tf.fused_beam_search.launches > before
+    assert type(gpu._stored_searcher().backend.engine).__name__ == \
+        "FusedBeamEngine"
+    monkeypatch.setenv("LEANN_GRAPH_ENGINE", "fused")
+    want = Index(base, device="cpu").search_vectors(q, top_k=10)
+    assert [[h.id for h in r] for r in got] == [[h.id for h in r] for r in want]
+    assert [r[0].id for r in got] == [f"p{i}" for i in range(0, 2000, 40)]
+    np.testing.assert_allclose([h.score for r in got for h in r],
+                               [h.score for r in want for h in r], rtol=1e-5)
+
+
 def test_bert_forward_on_cuda_matches_cpu(dev):
     """The encoder on the card against the CPU: float32 within 1e-5, the
     bf16 products (float32 result) within 2e-3 and cosine >= 0.999."""

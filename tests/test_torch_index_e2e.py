@@ -209,6 +209,26 @@ def test_port_imports_no_jax_and_no_reference(tmp_path):
         assert isinstance(s.backend, ShardedSearcher)
         assert shardfile.load_shards(base + "2", 2) is not None
         assert sniff_foreign_index(os.path.dirname(base)) is None
+        from leann_tpu_torch import (
+            agent, api, chunker, config, llm, open_index, rag, version)
+        from leann_tpu_torch.agent.react import ReActAgent
+        from leann_tpu_torch.chunker import SmartChunker
+        from leann_tpu_torch.chunker.code import CodeChunker
+        from leann_tpu_torch.cli import common
+        from leann_tpu_torch.embed import (
+            EmbeddingProvider, gemini, httpx, ollama, openai, provider,
+            registry)
+        from leann_tpu_torch.llm import anthropic, simulated
+        from leann_tpu_torch.rag.ask import AskSession
+        from leann_tpu_torch.store.locate import find_index, index_base
+        from leann_tpu_torch.utils import pdftext
+        idx = open_index(os.path.dirname(base), device="cpu")
+        assert idx.search(texts[5], hybrid=False, expand=False)[0].id == "d5"
+        assert idx.search("doc", top_k=3)
+        assert index_base(find_index(os.path.dirname(base))) == base
+        ask = AskSession(idx._stored_searcher(), idx.provider,
+                         llm.LlmProvider("simulated")).ask(texts[7])
+        assert ask.sources[0].id == "d7"
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m.startswith("jaxlib") or m == "leann_tpu"
