@@ -156,7 +156,9 @@ on stdout:
            each kernel vs its plain version at every shape the main
            paths launched it with: fused_beam_search at rag build (D=768,
            R=32, ip, L=64, visited log 128), rag search at L=64 and
-           L=1024, sift build (1M, L=80, visited log 160), sift search
+           L=1024, `api search B1 L64` (one rag query padded with qb-1
+           zero rows, as search_device pads the api phase's one-query
+           calls), sift build (1M, L=80, visited log 160), sift search
            (1M, B=2048), the recompute cases and `sharded search shard 0`
            (250k nodes, B=2048, L=64); pq_beam_search at deep search (1M,
            B=2048, beam 64 and DEEP_BEAM) and `sharded pq search shard 0`; ivf_bucket_dots at the ivf phase's search
@@ -2354,10 +2356,15 @@ def phase_kernels_main(torch, rag, sift, deep, ivf, ivf8, gather, recompute,
     wave = torch.from_numpy(np.random.default_rng(5).choice(
         sift_eng.n, sift_q.shape[0], replace=False)).to(dev)
     rc_eng, rc_q, rc_ids = recompute
+    # the api phase's one-query calls: search_device pads one real query
+    # with qb-1 zero rows (all their scores tie) to one group of qb
+    q1 = torch.cat([rag_q[:1], rag_q.new_zeros(rag_eng.qb - 1,
+                                               rag_q.shape[1])])
     cases = [
         ("rag build", build_args(
             rag_eng, rag_q, torch.from_numpy(pick).to(dev), 64), 10),
         ("rag search L64", rag_eng.kernel_args(rag_q, none(rag_q), 64), 10),
+        ("api search B1 L64", rag_eng.kernel_args(q1, none(q1), 64), 10),
         ("rag search L1024", rag_eng.kernel_args(
             rag_q, none(rag_q), RAG_COMPLEXITY), 3),
         ("sift build", build_args(
