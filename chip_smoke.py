@@ -9,7 +9,8 @@ residual-int8 IVF serving tier and the IVF-PQ tier at 10M x 96; the
 row-gather roofline; the BERT encoder at bert-base widths and `entry()`;
 pruned recompute, BASELINE config 3 at 100k passages; sharded search
 over four shards of one card; the library surface, `Index` /
-`open_index`, RAG ask and the ReAct agent), builds the CUDA kernels from
+`open_index`, RAG ask and the ReAct agent; the CLI, `python -m
+leann_tpu_torch`, and the HTTP and MCP servers), builds the CUDA kernels from
 `leann_tpu_torch/csrc/` (one nvcc per source, all started together), and
 holds each against its plain PyTorch version. Phases, one JSON line each
 on stdout:
@@ -152,13 +153,44 @@ on stdout:
            pruned and opened: Index.search must pick
            GraphRecomputeSearcher, self-hit@1 on 64 stored texts; per
            step seconds and peak memory. B1 must launch, no other kernel
+  cli      the CLI and the servers on the rag phase's index, through
+           `leann_tpu_torch.cli.main.main(argv)` with `--device cuda:0`
+           in a temporary working directory and HOME: `build` of the
+           rag texts written one per file (fake 768-d, default backend
+           hnsw -> vamana, B1 in its waves; seconds beside the rag
+           phase's), `search --format json` top-10 at complexity 64 one
+           text per call on 64 texts against the CLI index (self-hit@1 on
+           the text's own file) and against the rag index by its
+           directory (ids equal to `Index.search`'s), host ms p50 / p99;
+           one `python -m leann_tpu_torch --device cuda:0 search`
+           subprocess (exit 0, ids equal to the in-process call's, the
+           kernels' `_build/` unchanged: loaded, not rebuilt; wall s);
+           `ask` (the first source is the asked passage) and `react`
+           (its observation lists IndexSearcher's hits for the agent's
+           query) with `--llm simulated`; `update` with 200 new files (16
+           return their own passage first), `reindex --backend-name ivf`
+           (16 of 16), `prune -y` and 8 searches through the recompute
+           path (8 of 8), `list`, `remove -y`, `config path`; then
+           `ServerState` over `IndexSearcher.load(rag, device)` with
+           max_batch 64 and a 2 ms window, as `serve_cmd.run` builds it:
+           `warm()` (7), 256 `POST /search` of one rag text each from 32
+           client threads of a client process (self-hit@1, flushes < 256,
+           B1 launches <= flush groups; request ms p50 / p99, the flush
+           sizes), one `queries` batch of 64 (ids equal to
+           `IndexSearcher.search` on the same 64 vectors), GET /health
+           /info /metrics; `McpServer(rag dir, device).handle` initialize,
+           tools/list and a search (the passage first). B1 must launch,
+           no other kernel
   kernels_main
            each kernel vs its plain version at every shape the main
            paths launched it with: fused_beam_search at rag build (D=768,
            R=32, ip, L=64, visited log 128), rag search at L=64 and
            L=1024, `api search B1 L64` (one rag query padded with qb-1
            zero rows, as search_device pads the api phase's one-query
-           calls), sift build (1M, L=80, visited log 160), sift search
+           calls), `serve flush B<n> L64` (the flush size the cli
+           phase's HTTP traffic produced most often, its rag queries
+           padded with zero rows to a multiple of qb, as search_device
+           pads a flush), sift build (1M, L=80, visited log 160), sift search
            (1M, B=2048), the recompute cases and `sharded search shard 0`
            (250k nodes, B=2048, L=64); pq_beam_search at deep search (1M,
            B=2048, beam 64 and DEEP_BEAM) and `sharded pq search shard 0`; ivf_bucket_dots at the ivf phase's search
@@ -173,7 +205,7 @@ on stdout:
 
 The counts of kernel launches are set to 0 just before each main-path
 phase (rag, sift, deep, ivf, ivf8, gather, ivfpq, rag_ivf, encode,
-recompute, sharded, api) and read just after it. Any failure exits
+recompute, sharded, api, cli) and read just after it. Any failure exits
 non-zero with no `ok` line. The last lines are the kernel table, the
 card's `nvidia-smi` name and power limit, and {"ok": true, "device": ...}.
 """
@@ -2324,6 +2356,411 @@ def phase_api(torch, dev, n_docs, counter, base, q, pick, rag_row):
     return row
 
 
+CLI_SEARCHES = 64      # texts per `search` pass (CLI index, rag index)
+CLI_UPDATE_FILES = 200
+CLI_HTTP_REQUESTS = 256
+CLI_HTTP_CLIENTS = 32
+
+
+def cli_ok(argv):
+    """The port's CLI in process, `main(argv)`: its stdout; raises unless
+    the command exits 0."""
+    import contextlib
+    import io
+
+    from leann_tpu_torch.cli.main import main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    if rc != 0:
+        raise AssertionError(f"cli: {argv[:4]} exited {rc}: "
+                             f"{buf.getvalue()[-500:]}")
+    return buf.getvalue()
+
+
+def cli_search(dev, text, index, **kw):
+    """`search` as JSON, top-10 at complexity 64, no expansion, no auto
+    hybrid: (ids, host ms)."""
+    argv = ["--device", str(dev), "search", text, "-i", index,
+            "--format", "json", "--top-k", "10", "--complexity", "64",
+            "--no-expand", "--no-auto-hybrid"]
+    t0 = time.perf_counter()
+    out = cli_ok(argv)
+    ms = (time.perf_counter() - t0) * 1e3
+    return [r["id"] for r in json.loads(out)], ms
+
+
+def build_listing():
+    """(name, size, mtime) of every file in the kernels' build directory."""
+    from leann_tpu_torch.ops import _cuda
+
+    if not os.path.isdir(_cuda.BUILD_DIR):
+        return []
+    return sorted((f, os.stat(os.path.join(_cuda.BUILD_DIR, f)).st_size,
+                   os.stat(os.path.join(_cuda.BUILD_DIR, f)).st_mtime_ns)
+                  for f in os.listdir(_cuda.BUILD_DIR))
+
+
+# The HTTP clients run in a process of their own, so that their threads do
+# not share the server's interpreter lock: argv host, port, clients; the
+# JSON bodies on stdin; out, one JSON object: the replies in order, the
+# wall ms of each request and of the whole burst.
+HTTP_CLIENT = r"""
+import http.client, json, sys, threading, time
+from concurrent.futures import ThreadPoolExecutor
+
+host, port, clients = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+bodies = json.load(sys.stdin)
+local = threading.local()
+
+
+def post(body):
+    conn = getattr(local, "conn", None)
+    if conn is None:
+        conn = local.conn = http.client.HTTPConnection(host, port, timeout=60)
+    data = json.dumps(body).encode()
+    t0 = time.perf_counter()
+    conn.request("POST", "/search", body=data,
+                 headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    reply = json.loads(resp.read())
+    return resp.status, reply, (time.perf_counter() - t0) * 1e3
+
+
+t0 = time.perf_counter()
+with ThreadPoolExecutor(clients) as pool:
+    out = list(pool.map(post, bodies))
+wall = (time.perf_counter() - t0) * 1e3
+json.dump({"status": [o[0] for o in out], "replies": [o[1] for o in out],
+           "ms": [o[2] for o in out], "wall_ms": wall}, sys.stdout)
+"""
+
+
+def http_burst(url, bodies, clients):
+    """POST each body to url/search from `clients` threads of a client
+    process, each thread on its own keep-alive connection: (replies in
+    order, wall ms per request, wall s of the burst)."""
+    from urllib.parse import urlparse
+
+    u = urlparse(url)
+    proc = subprocess.run(
+        [sys.executable, "-c", HTTP_CLIENT, u.hostname, str(u.port),
+         str(clients)], input=json.dumps(bodies), capture_output=True,
+        text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"cli: HTTP client failed: {proc.stderr[-2000:]}")
+    out = json.loads(proc.stdout)
+    if any(st != 200 for st in out["status"]):
+        raise AssertionError(f"cli: POST /search statuses {set(out['status'])}")
+    return out["replies"], out["ms"], out["wall_ms"] / 1e3
+
+
+def phase_cli(torch, dev, n_docs, counter, rag_base, pick, rag_row):
+    """The CLI and the servers on BASELINE config 0, through
+    `leann_tpu_torch.cli.main.main(argv)` with `--device <dev>`, in a
+    temporary working directory and HOME: `build` of the rag phase's
+    20,000 texts written one per file (fake 768-d, hnsw -> vamana: B1
+    serves the build's waves), `search` one text per call on the CLI index
+    (self-hit@1 on the text's own file) and on the rag index by its
+    directory (ids equal to `Index.search`'s), one `python -m
+    leann_tpu_torch search` subprocess (ids equal, kernels loaded from
+    `_build/`, not rebuilt), `ask` / `react` with the simulated LLM,
+    `update` with 200 files, `reindex --backend-name ivf`, `prune`, `list`,
+    `remove`, `config path`; then `serve`'s `ServerState` over the rag
+    index (warm, 256 requests from 32 clients coalesced by the
+    MicroBatcher, a batch of 64, /health /info /metrics) and `mcp`'s
+    `McpServer.handle`. B1 must launch, no other kernel. Returns the
+    row, with the flush size the HTTP traffic produced most often."""
+    import collections
+    import threading
+
+    from leann_tpu_torch import open_index
+    from leann_tpu_torch.cli.common import (
+        provider_from_meta, resolve_query_template,
+    )
+    from leann_tpu_torch.index import IndexSearcher, SearchOptions
+    from leann_tpu_torch.server.http import ServerState, serve
+    from leann_tpu_torch.server.mcp import McpServer
+    from leann_tpu_torch.store.meta import IndexMeta, meta_path
+    from leann_tpu_torch.utils import METRICS
+
+    t_phase = time.perf_counter()
+    row, bad, steps_s, launches = {}, [], {}, {}
+    t_step = [t_phase]
+    c_step = [counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        steps_s[name] = now - t_step[0]
+        launches[name] = counter() - c_step[0]
+        t_step[0], c_step[0] = now, counter()
+
+    def p(q):
+        return float(np.percentile(q, 50)), float(np.percentile(q, 99))
+
+    d = str(dev)
+    rag_dir = os.path.dirname(rag_base)
+    _, texts = rag_texts(n_docs)
+    sel = [int(i) for i in pick[:CLI_SEARCHES]]
+    saved_cwd = os.getcwd()
+    saved_env = {k: os.environ.get(k) for k in ("HOME", "XDG_CONFIG_HOME")}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        os.chdir(tmp)
+        os.environ["HOME"] = os.path.join(tmp, "home")
+        os.environ["XDG_CONFIG_HOME"] = os.path.join(tmp, "home", ".config")
+        os.makedirs("docs")
+        for i, t in enumerate(texts):
+            with open(os.path.join("docs", f"p{i}.txt"), "w") as f:
+                f.write(t)
+        lap("write_files")
+
+        # 1. build: config 0 through the CLI
+        t0 = time.perf_counter()
+        cli_ok(["--device", d, "build", "cli", "--docs", "docs",
+                "--embedding-mode", "fake", "--embedding-dimensions", "768"])
+        row["build_s"] = time.perf_counter() - t0
+        row["rag_build_s"] = rag_row["build_s"]
+        meta = IndexMeta.load(meta_path(os.path.join(
+            ".leann", "indexes", "cli", "documents.leann")))
+        row["build_meta"] = [meta.backend_name, meta.passage_count,
+                             meta.dimensions, meta.backend_kwargs]
+        if meta.passage_count != n_docs or meta.backend_name != "vamana":
+            bad.append("build meta")
+        lap("build")
+
+        # 2. search one text per call: the CLI index, then the rag index
+        hits, wall = [], []
+        for i in sel:
+            ids, ms = cli_search(dev, texts[i], "cli")
+            hits.append(bool(ids) and ids[0] == f"docs/p{i}.txt#0")
+            wall.append(ms)
+        row["search_self_hit1"] = float(np.mean(hits))
+        row["search_ms_p50"], row["search_ms_p99"] = p(wall)
+        if row["search_self_hit1"] < 0.99:
+            bad.append("search self-hit@1")
+        lap("search_cli_index")
+        idx = open_index(rag_dir, device=dev)
+        same, wall = 0, []
+        for i in sel:
+            ids, ms = cli_search(dev, texts[i], rag_dir)
+            want = [h.id for h in idx.search(texts[i], top_k=10,
+                                             complexity=64, hybrid=False,
+                                             expand=False)]
+            same += ids == want
+            wall.append(ms)
+        row["rag_ids_equal_index"] = same
+        row["rag_search_ms_p50"], row["rag_search_ms_p99"] = p(wall)
+        if same != len(sel):
+            bad.append("search ids against Index.search")
+        lap("search_rag_index")
+
+        # 3. one subprocess: a fresh interpreter loads the built kernels
+        j = sel[0]
+        argv = ["--device", d, "search", texts[j], "-i", rag_dir,
+                "--format", "json", "--top-k", "10"]
+        want = [r["id"] for r in json.loads(cli_ok(argv))]
+        listing = build_listing()
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(
+            os.path.abspath(__file__)))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "leann_tpu_torch"]
+                              + argv, capture_output=True, text=True,
+                              env=env, timeout=300)
+        row["subprocess_s"] = time.perf_counter() - t0
+        row["subprocess_rc"] = proc.returncode
+        got = ([r["id"] for r in json.loads(proc.stdout)]
+               if proc.returncode == 0 else None)
+        row["subprocess_ids_equal"] = got == want
+        row["subprocess_build_dir_unchanged"] = build_listing() == listing
+        if proc.returncode != 0:
+            log(proc.stderr[-2000:])
+        if not (proc.returncode == 0 and got == want
+                and row["subprocess_build_dir_unchanged"]):
+            bad.append("subprocess")
+        lap("subprocess")
+
+        # 4. ask and react with the simulated LLM on the rag index
+        out = cli_ok(["--device", d, "ask", texts[j], "-i", rag_dir,
+                      "--llm", "simulated", "--show-sources"])
+        first = out.split("Sources:")[-1].split()
+        row["ask_first_source"] = first[1] if len(first) > 1 else None
+        if row["ask_first_source"] != f"p{j}":
+            bad.append("ask")
+        out = cli_ok(["--device", d, "react", texts[j], "-i", rag_dir,
+                      "--llm", "simulated", "--show-steps"])
+        # the simulated agent searches its own canned query once, then
+        # finishes: its observation must list IndexSearcher's hits for it
+        obs = [ln.split("(")[1].split(")")[0] for ln in out.splitlines()
+               if ln.startswith(("Observation: [", "[")) and "(" in ln]
+        searcher = IndexSearcher.load(rag_base, device=dev)
+        agent_q = idx.embed(["simulated query"])
+        want = [h.id for h in searcher.search(
+            agent_q, SearchOptions(top_k=3, complexity=64))[0]]
+        row["react_hits"] = obs
+        if obs != want or "--- answer ---" not in out:
+            bad.append("react")
+        lap("ask_react")
+
+        # 5. update, reindex to ivf, prune; list, remove, config path
+        rng = np.random.default_rng(12)
+        words = np.array([f"w{i}" for i in range(5000)])
+        new = [f"update {i}: " + " ".join(rng.choice(words, 24))
+               for i in range(CLI_UPDATE_FILES)]
+        for i, t in enumerate(new):
+            with open(os.path.join("docs", f"u{i}.txt"), "w") as f:
+                f.write(t)
+        t0 = time.perf_counter()
+        out = cli_ok(["--device", d, "update", "cli", "--docs", "docs"])
+        row["update_s"] = time.perf_counter() - t0
+        row["update_out"] = out.strip().splitlines()[-1]
+        got = sum(cli_search(dev, new[i], "cli")[0][:1] == [f"docs/u{i}.txt#0"]
+                  for i in range(16))
+        row["update_self_hit"] = got
+        if got != 16:
+            bad.append("update")
+        lap("update")
+        t0 = time.perf_counter()
+        out = cli_ok(["--device", d, "reindex", "cli", "--backend-name",
+                      "ivf"])
+        row["reindex_ivf_s"] = time.perf_counter() - t0
+        row["reindex_out"] = out.strip().splitlines()[1:]
+        got = sum(cli_search(dev, texts[i], "cli")[0][:1]
+                  == [f"docs/p{i}.txt#0"] for i in sel[:16])
+        row["ivf_self_hit"] = got
+        if got != 16:
+            bad.append("reindex ivf")
+        lap("reindex_ivf")
+        row["prune_out"] = cli_ok(["prune", "cli", "-y"]).strip()
+        wall = []
+        got = 0
+        for i in sel[:8]:
+            ids, ms = cli_search(dev, texts[i], "cli")
+            got += ids[:1] == [f"docs/p{i}.txt#0"]
+            wall.append(ms)
+        row["pruned_self_hit"], row["pruned_ms_mean"] = got, float(
+            np.mean(wall))
+        if got != 8:
+            bad.append("prune")
+        lap("prune")
+        listed = cli_ok(["list"])
+        removed = cli_ok(["remove", "cli", "-y"])
+        cfg = cli_ok(["config", "path"])
+        row["list_remove_config"] = [listed.split()[0], removed.strip(),
+                                     cfg.strip().endswith("config.toml")]
+        lap("list_remove_config")
+
+        # 6. serve: ServerState as serve_cmd.run builds it
+        meta = IndexMeta.load(meta_path(rag_base))
+        provider = provider_from_meta(meta, device=dev)
+        template = resolve_query_template(None, meta)
+        state = ServerState(IndexSearcher.load(rag_base, device=dev),
+                            provider, template, "rag", max_batch=64,
+                            batch_window_ms=2)
+        server = None
+        try:
+            t0 = time.perf_counter()
+            row["warm_searches"] = state.warm()
+            row["warm_s"] = time.perf_counter() - t0
+            if row["warm_searches"] != 7:
+                bad.append("warm")
+            server = serve(state, port=0)
+            threading.Thread(target=server.serve_forever,
+                             daemon=True).start()
+            url = f"http://127.0.0.1:{server.server_address[1]}"
+            order = [int(i) for i in pick[:CLI_HTTP_REQUESTS]]
+            METRICS.reset()
+            c0 = counter()
+            replies, wall, row["http_s"] = http_burst(url, [
+                {"query": texts[i], "top_k": 10, "hybrid": False}
+                for i in order], CLI_HTTP_CLIENTS)
+            row["http_qps"] = len(order) / row["http_s"]
+            row["http_launches"] = counter() - c0
+            snap = METRICS.snapshot()
+            sizes = collections.Counter(
+                int(s) for s in METRICS.samples("batch.flush_size"))
+            groups = int(snap["batch.groups_per_flush"]["sum"])
+            row["http_self_hit1"] = float(np.mean([
+                bool(r["results"]) and r["results"][0]["id"] == f"p{i}"
+                for r, i in zip(replies, order)]))
+            row["http_ms_p50"], row["http_ms_p99"] = p(wall)
+            row["flushes"] = int(snap["batch.flushes"]["value"])
+            row["flush_groups"] = groups
+            row["flush_size_mean"] = snap["batch.flush_size"]["avg"]
+            row["flush_sizes"] = dict(sorted(sizes.items()))
+            row["flush_size_mode"] = max(sizes, key=lambda s: (sizes[s], s))
+            row["embed_ms_mean"] = snap["batch.embed_ms"]["avg"]
+            row["group_ms_mean"] = snap["batch.group_ms"]["avg"]
+            if row["http_self_hit1"] < 0.99:
+                bad.append("http self-hit@1")
+            if not row["flushes"] < CLI_HTTP_REQUESTS:
+                bad.append("http flushes")
+            if not 0 < row["http_launches"] <= groups:
+                bad.append("http launches")
+            batch = [texts[i] for i in order[:64]]
+            reply, _, _ = http_burst(url, [{"queries": batch, "top_k": 10,
+                                            "hybrid": False}], 1)
+            vecs = provider.embed_with_template(batch, template)
+            want = [[h.id for h in r] for r in state.searcher.search(
+                vecs, SearchOptions(top_k=10, complexity=64))]
+            got = [[h["id"] for h in r]
+                   for r in reply[0]["results_per_query"]]
+            row["http_batch64_ids_equal"] = got == want
+            if got != want:
+                bad.append("http batch of 64")
+            import urllib.request
+
+            for path in ("/health", "/info", "/metrics"):
+                with urllib.request.urlopen(url + path, timeout=30) as r:
+                    body = r.read().decode()
+                    if r.status != 200:
+                        bad.append(f"GET {path}")
+            row["metrics_has_search_requests"] = "search_requests" in body
+            if not row["metrics_has_search_requests"]:
+                bad.append("/metrics")
+        finally:
+            if server is not None:
+                server.shutdown()
+                server.server_close()
+            state.batcher.close()
+        lap("serve")
+
+        # 7. mcp
+        mcp = McpServer(default_index=rag_dir, device=dev)
+        init = mcp.handle({"jsonrpc": "2.0", "id": 1, "method": "initialize",
+                           "params": {}})
+        tools = mcp.handle({"jsonrpc": "2.0", "id": 2,
+                            "method": "tools/list"})
+        k = sel[1]
+        reply = mcp.handle({"jsonrpc": "2.0", "id": 3, "method": "tools/call",
+                            "params": {"name": "search", "arguments": {
+                                "query": texts[k], "top_k": 3}}})
+        text = reply["result"]["content"][0]["text"]
+        row["mcp_first"] = text.split("**[1]** `")[1].split("`")[0]
+        if not (init["result"]["serverInfo"]["name"] == "leann-tpu"
+                and len(tools["result"]["tools"]) == 2
+                and not reply["result"]["isError"]
+                and row["mcp_first"] == f"p{k}"):
+            bad.append("mcp")
+        lap("mcp")
+    finally:
+        os.chdir(saved_cwd)
+        for key, val in saved_env.items():
+            if val is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = val
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    row["phase_s"] = time.perf_counter() - t_phase
+    emit({"phase": "cli", "n": n_docs, **row, "steps_s": steps_s,
+          "launches_by_step": launches})
+    if bad:
+        raise AssertionError(f"cli: {bad} failed their gates")
+    return row
+
+
 def build_args(eng, q, ids, beam):
     """B1's arguments in the builder's final pass at complexity `beam`
     (max_iters 2L+16, visited log 2L, two expansions) on eng's graph."""
@@ -2336,7 +2773,7 @@ def build_args(eng, q, ids, beam):
 
 
 def phase_kernels_main(torch, rag, sift, deep, ivf, ivf8, gather, recompute,
-                       sharded):
+                       sharded, cli):
     """Each kernel against its plain version at the shapes the main paths
     launched it with. The build cases take the builder's final-pass
     arguments (L = complexity, max_iters 2L+16, visited log 2L, medoid
@@ -2360,11 +2797,18 @@ def phase_kernels_main(torch, rag, sift, deep, ivf, ivf8, gather, recompute,
     # with qb-1 zero rows (all their scores tie) to one group of qb
     q1 = torch.cat([rag_q[:1], rag_q.new_zeros(rag_eng.qb - 1,
                                                rag_q.shape[1])])
+    # the serve flush the cli phase's HTTP traffic produced most often:
+    # its m real rows padded with zero rows to a multiple of qb
+    m = cli["flush_size_mode"]
+    bb = -(-m // rag_eng.qb) * rag_eng.qb
+    qf = torch.cat([rag_q[:m], rag_q.new_zeros(bb - m, rag_q.shape[1])])
     cases = [
         ("rag build", build_args(
             rag_eng, rag_q, torch.from_numpy(pick).to(dev), 64), 10),
         ("rag search L64", rag_eng.kernel_args(rag_q, none(rag_q), 64), 10),
         ("api search B1 L64", rag_eng.kernel_args(q1, none(q1), 64), 10),
+        (f"serve flush B{bb} L64", rag_eng.kernel_args(qf, none(qf), 64),
+         10),
         ("rag search L1024", rag_eng.kernel_args(
             rag_q, none(rag_q), RAG_COMPLEXITY), 3),
         ("sift build", build_args(
@@ -2377,6 +2821,8 @@ def phase_kernels_main(torch, rag, sift, deep, ivf, ivf8, gather, recompute,
     cases.append(("sharded search shard 0",
                   sh_graph.kernel_args(sh_q, 64, shard=0), 5))
     rows = [check_case(torch, label, kw, reps) for label, kw, reps in cases]
+    next(r for r in rows if r["case"].startswith("serve flush"))[
+        "real_rows"] = m
     emit({"phase": "kernels_main", "kernel": FUSED["name"], "cases": rows,
           "library_ms": None})
 
@@ -2499,11 +2945,13 @@ def main() -> int:
                         SHARDED_N, sift_data, rag[4], rag[1], rag[2])
         drive(phase_api, [FUSED["name"]], RAG_N, rag[4], rag[1], rag[2],
               rag[3])
+        cli = drive(phase_cli, [FUSED["name"]], RAG_N, rag[4], rag[2],
+                    rag[3])
     finally:
         shutil.rmtree(rag_root, ignore_errors=True)
     del sift_data
     main_rows, pq_main, dots_main, ivf8_main, gather_main = phase_kernels_main(
-        torch, rag, sift, deep, ivf, ivf8, gather, recompute, sharded)
+        torch, rag, sift, deep, ivf, ivf8, gather, recompute, sharded, cli)
 
     # the table rows: times at each kernel's serving shape (sift search,
     # 1M, B=2048; deep search, 1M, B=2048, beam DEEP_BEAM; ivf search,

@@ -10,6 +10,7 @@ cuda) through the port's `load_searcher`.
 from __future__ import annotations
 
 import os
+import threading
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -59,6 +60,9 @@ class IndexSearcher:
                                      device=device)
         self._bm25: Optional[Bm25Scorer] = None
         self._bm25_checked = False
+        # the HTTP server's flush threads share one searcher: the first
+        # hybrid flushes must not see "checked" before the scorer exists
+        self._bm25_lock = threading.Lock()
 
     @staticmethod
     def load(base: str, sharded: bool = False,
@@ -71,21 +75,23 @@ class IndexSearcher:
     # ---------------- BM25 sidecar ----------------
 
     def bm25(self) -> Optional[Bm25Scorer]:
-        if not self._bm25_checked:
-            self._bm25_checked = True
-            path = bm25_path(self.base)
-            if os.path.exists(path):
-                self._bm25 = Bm25Scorer.load(path)
-            else:
-                # Fallback: build in memory from the passage file (slow path,
-                # matches reference behavior when no sidecar exists).
-                texts = [None] * len(self.ids)
-                pos = {pid: i for i, pid in enumerate(self.ids)}
-                for p in self.passages.iter_all():
-                    i = pos.get(p.id)
-                    if i is not None:
-                        texts[i] = p.text
-                self._bm25 = Bm25Scorer.build([t or "" for t in texts])
+        with self._bm25_lock:
+            if not self._bm25_checked:
+                path = bm25_path(self.base)
+                if os.path.exists(path):
+                    self._bm25 = Bm25Scorer.load(path)
+                else:
+                    # Fallback: build in memory from the passage file (slow
+                    # path, matches reference behavior when no sidecar
+                    # exists).
+                    texts = [None] * len(self.ids)
+                    pos = {pid: i for i, pid in enumerate(self.ids)}
+                    for p in self.passages.iter_all():
+                        i = pos.get(p.id)
+                        if i is not None:
+                            texts[i] = p.text
+                    self._bm25 = Bm25Scorer.build([t or "" for t in texts])
+                self._bm25_checked = True
         return self._bm25
 
     def bm25_search(self, query: str, top_k: int) -> List[SearchResult]:

@@ -28,6 +28,7 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_COUNT_LOCK = threading.Lock()
 
 _PTR, _I32 = ctypes.c_void_p, ctypes.c_int
 # (argtypes, restype) of each library's exported functions; every library
@@ -130,6 +131,13 @@ def load(name: str) -> ctypes.CDLL:
         lib.leann_cuda_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib
         return lib
+
+
+def count_launch(wrapper) -> None:
+    """Add one to `wrapper.launches` under a lock: the HTTP server's
+    flush pool launches kernels from two threads at once."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -231,7 +231,7 @@ def ivf_bucket_dots(
             scratch.data_ptr(), scratch[k + 2:].data_ptr(), vecs.data_ptr(),
             out.data_ptr(), b, p, k, cap, d, g, qmax, _vec(vecs, 2), stream)
     _cuda.check(lib, err, "ivf_bucket_dots")
-    ivf_bucket_dots.launches += 1
+    _cuda.count_launch(ivf_bucket_dots)
     return out
 
 
@@ -347,7 +347,7 @@ def ivf8_bucket_scores(
             *(t.data_ptr() for t in meta), out.data_ptr(), b, p, kp, cap, d,
             g, qmax, _vec(pay, 1), int(metric == "l2"), stream)
     _cuda.check(lib, err, "ivf8_bucket_scores")
-    ivf8_bucket_scores.launches += 1
+    _cuda.count_launch(ivf8_bucket_scores)
     return out
 
 

@@ -486,7 +486,7 @@ def fused_beam_search(
             max_iters, int(metric == "l2"), blocks_i8.shape[0] - 1, qb,
             stream)
     _cuda.check(lib, err, "fused_beam_search")
-    fused_beam_search.launches += 1
+    _cuda.count_launch(fused_beam_search)
     out = (out_ids, out_sc, vlog) if vt else (out_ids, out_sc)
     return out + (slow, hops) if merge_stats else out
 

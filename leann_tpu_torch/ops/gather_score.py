@@ -98,7 +98,7 @@ def gather_score(
             corpus.data_ptr(), ids32.data_ptr(), q.data_ptr(), out.data_ptr(),
             n, b, r, d, w, g, stream)
     _cuda.check(lib, err, "gather_score")
-    gather_score.launches += 1
+    _cuda.count_launch(gather_score)
     return out
 
 

@@ -382,7 +382,7 @@ def pq_beam_search(
             hops.data_ptr(), slot_words, b, r, m, ksub, bits, cp, s, l, e,
             p2, v, vt, max_iters, qb, records.shape[0] - 1, stream)
     _cuda.check(lib, err, "pq_beam_search")
-    pq_beam_search.launches += 1
+    _cuda.count_launch(pq_beam_search)
     return (out_ids, out_sc, vlog) if vt else (out_ids, out_sc)
 
 

@@ -1,6 +1,6 @@
-"""Process-wide metrics registry: counters + histograms (the port's copy
-of `leann_tpu/utils/metrics.py`; the Prometheus export waits for the
-HTTP server's slice).
+"""Process-wide metrics registry: counters + histograms, exported in
+Prometheus text format by the HTTP server's /metrics endpoint (the
+port's copy of `leann_tpu/utils/metrics.py`).
 """
 
 from __future__ import annotations
@@ -71,10 +71,37 @@ class Metrics:
                 }
             return out
 
+    def samples(self, name: str) -> List[float]:
+        """A copy of the histogram's recent samples (up to 1,024), oldest
+        first; empty when nothing was observed."""
+        with self._lock:
+            hist = self._histograms.get(name)
+            return list(hist.samples) if hist is not None else []
+
     def reset(self) -> None:
         with self._lock:
             self._counters.clear()
             self._histograms.clear()
+
+    def prometheus(self) -> str:
+        """Prometheus text exposition format."""
+        def sanitize(name: str) -> str:
+            return name.replace(".", "_").replace("-", "_")
+
+        lines = []
+        snap = self.snapshot()
+        for name, data in sorted(snap.items()):
+            metric = sanitize(name)
+            if data["type"] == "counter":
+                lines.append(f"# TYPE {metric} counter")
+                lines.append(f"{metric} {data['value']}")
+            else:
+                lines.append(f"# TYPE {metric} summary")
+                lines.append(f'{metric}{{quantile="0.5"}} {data["p50"]}')
+                lines.append(f'{metric}{{quantile="0.99"}} {data["p99"]}')
+                lines.append(f"{metric}_sum {data['sum']}")
+                lines.append(f"{metric}_count {data['count']}")
+        return "\n".join(lines) + "\n"
 
 
 METRICS = Metrics()
