@@ -10,13 +10,16 @@ row-gather roofline; the BERT encoder at bert-base widths and `entry()`;
 pruned recompute, BASELINE config 3 at 100k passages; sharded search
 over four shards of one card; the library surface, `Index` /
 `open_index`, RAG ask and the ReAct agent; the CLI, `python -m
-leann_tpu_torch`, and the HTTP and MCP servers), builds the CUDA kernels from
-`leann_tpu_torch/csrc/` (one nvcc per source, all started together), and
-holds each against its plain PyTorch version. Phases, one JSON line each
+leann_tpu_torch`, and the HTTP and MCP servers; the native BM25 build
+behind every index build), builds the CUDA kernels from
+`leann_tpu_torch/csrc/` (one nvcc per source, all started together, and
+g++ on `csrc/leann_native.cpp` beside them), and holds each against its
+plain PyTorch version. Phases, one JSON line each
 on stdout:
 
   env      torch / CUDA / nvcc versions, the card's name and power limit
-  build    nvcc build of the kernel libraries (seconds)
+  build    nvcc build of the kernel libraries and, in a thread beside
+           it, g++ build of the native BM25 library (seconds of each)
   kernels  fused_beam_search (CUDA) vs fused_beam_search_plain on the
            card, exactly (ids, scores, visited log, and the counts of
            hops merged by the bitonic network because scores tied):
@@ -47,7 +50,16 @@ on stdout:
   rag      StreamingIndexBuilder over 20,000 fake-embedded 768-d
            passages (backend hnsw, R=32, L=64, ip), then
            IndexSearcher.search on 256 passage texts at complexity 64
-           and 1024: self-hit@1 and recall@10 against the exact engine
+           and 1024: self-hit@1 and recall@10 against the exact engine;
+           StreamingIndexBuilder's BM25 build must take the native path
+  native   the native host runtime, no kernel: Bm25Scorer.build (native)
+           against the Python build on the rag phase's 20,000 texts and
+           on recompute's 100,000 (arrays equal exactly, the two
+           `.bm25.npz` files byte-equal, seconds of each build and save);
+           IndexSearcher's in-memory build on a copy of the rag index
+           without its sidecar (native, equal to the sidecar);
+           scan_line_offsets on the rag passages JSONL equal to the
+           sorted offsets of its offsets file
   sift     a 128-d l2 mixture corpus (1024 clusters, seed 0), Vamana
            R=48 L=80 alpha 1.2 wave 8192, graph saved and reloaded,
            FusedBeamEngine at beam 64: recall@10 on 1024 queries and
@@ -113,7 +125,9 @@ on stdout:
            (random weights, T=48) through LocalEmbedding at batch 512;
            StreamingIndexBuilder (hnsw, ip, R=32, L=48, two passes,
            is_recompute: the token sidecar) with build s split into
-           graph / tokens / BM25; the stored-vector search (B1) on 256
+           graph / tokens / BM25 (beside the Python build's 3.9 s; native
+           BM25 only);
+           the stored-vector search (B1) on 256
            stored rows at beams 32 and 64; prune; GraphRecomputeSearcher
            at the same beams: recall@10 against the exact oracle on the
            stored vectors, wall s, device ms, QPS, hops, encoder rows per
@@ -168,9 +182,11 @@ on stdout:
            `ask` (the first source is the asked passage) and `react`
            (its observation lists IndexSearcher's hits for the agent's
            query) with `--llm simulated`; `update` with 200 new files (16
-           return their own passage first), `reindex --backend-name ivf`
-           (16 of 16), `prune -y` and 8 searches through the recompute
-           path (8 of 8), `list`, `remove -y`, `config path`; then
+           return their own passage first), `reindex --backend-name ivf
+           --rebuild-bm25` (16 of 16; build, update and reindex each
+           build BM25 once, natively), `prune -y` and 8 searches
+           through the recompute path (8 of 8), `list`, `remove -y`,
+           `config path`; then
            `ServerState` over `IndexSearcher.load(rag, device)` with
            max_batch 64 and a 2 ms window, as `serve_cmd.run` builds it:
            `warm()` (7), 256 `POST /search` of one rag text each from 32
@@ -204,8 +220,8 @@ on stdout:
            + torch.bmm in bf16, both inside the timed window
 
 The counts of kernel launches are set to 0 just before each main-path
-phase (rag, sift, deep, ivf, ivf8, gather, ivfpq, rag_ivf, encode,
-recompute, sharded, api, cli) and read just after it. Any failure exits
+phase (rag, native, sift, deep, ivf, ivf8, gather, ivfpq, rag_ivf,
+encode, recompute, sharded, api, cli) and read just after it. Any failure exits
 non-zero with no `ok` line. The last lines are the kernel table, the
 card's `nvidia-smi` name and power limit, and {"ok": true, "device": ...}.
 """
@@ -281,6 +297,10 @@ RECOMPUTE_MIN_RECALL = 0.906
 # stored at its length bucket (16). The first card run of the check gave
 # 4.8e-7 (4 float32 ulps at 1.0, PERF.md); the limit is 4x that
 RECOMPUTE_SCORE_TOL = 2e-6
+# the build's `build.bm25` span when BM25 was built in Python (the build
+# and the compressed save; PERF.md §5, one H100 at 700 W): the native
+# build's yardstick
+RECOMPUTE_BM25_S_PYTHON = 3.9
 
 # sharded search (`parallel/sharded.py`): the sift phase's corpus over a
 # (1, 4) mesh of one card, the sift graph settings per shard, IVF with the
@@ -445,6 +465,38 @@ def profile(torch, fn, top=6):
     return {"busy_ms": busy, "wall_ms": wall_ms,
             "idle_share": max(0.0, 1.0 - busy / wall_ms), "gemm_ms": gemm,
             "kernels_ms": dict(sorted(ms.items(), key=lambda kv: -kv[1])[:top])}
+
+
+def bm25_builds():
+    """(native, python): the BM25 builds counted so far in METRICS by
+    `Bm25Scorer.build`."""
+    from leann_tpu_torch.utils import METRICS
+
+    snap = METRICS.snapshot()
+    return tuple(int(snap.get(f"bm25.build.{k}", {}).get("value", 0))
+                 for k in ("native", "python"))
+
+
+def bm25_since(before):
+    """{"native": n, "python": p}: the BM25 builds since `before` (what
+    `bm25_builds()` returned then)."""
+    return dict(zip(("native", "python"),
+                    (a - b for a, b in zip(bm25_builds(), before))))
+
+
+def bm25_equal(a, b):
+    """{array: equal exactly, dtype included} for two Bm25Scorers."""
+    return {k: bool(getattr(a, k).dtype == getattr(b, k).dtype
+                    and np.array_equal(getattr(a, k), getattr(b, k)))
+            for k in ("vocab", "offsets", "post_docs", "post_tfs",
+                      "doc_lengths")}
+
+
+def check_bm25(phase, builds):
+    """Raise unless the phase built BM25 and every build was native."""
+    if builds["native"] <= 0 or builds["python"] != 0:
+        raise AssertionError(f"{phase}: BM25 builds {builds}, not all "
+                             "native")
 
 
 def smi() -> str:
@@ -867,17 +919,38 @@ def phase_env(torch):
 
 
 def phase_build():
+    """The kernels' libraries, one nvcc per source, and the native BM25
+    library (g++ on `csrc/leann_native.cpp`) in a thread beside them, all
+    started together."""
+    import threading
+
+    from leann_tpu_torch import native
     from leann_tpu_torch.ops import _cuda
 
     libs = ("fused_beam", "pq_beam", "ivf_bucket_dots", "ivf8_scan",
             "gather_score", "pq_beam_scan", "ivf_bucket_dots_pairs",
             "ivf8_scan_pairs")
+    gpp = {}
+
+    def build_native():
+        t = time.perf_counter()
+        gpp["lib"] = native._load_lib()
+        gpp["s"] = time.perf_counter() - t
+
     t0 = time.perf_counter()
+    thread = threading.Thread(target=build_native)
+    thread.start()
     _cuda.build(libs)
     for name in libs:
         _cuda.load(name)
+    thread.join()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "sources": [k["source"] for k in (FUSED, PQ, DOTS, IVF8, GATHER)]})
+          "native_s": gpp["s"], "native_lib": native._compiled_lib_path(),
+          "sources": [k["source"] for k in (FUSED, PQ, DOTS, IVF8, GATHER)]
+          + ["leann_tpu_torch/csrc/leann_native.cpp"]})
+    if gpp["lib"] is None:
+        raise AssertionError("build: g++ could not build the native BM25 "
+                             "library (leann_tpu_torch/csrc/leann_native.cpp)")
 
 
 def phase_kernels(torch, dev):
@@ -1048,12 +1121,13 @@ def rag_build_search(torch, dev, name, texts, vecs, q, pick, counter,
         for i, (t, v) in enumerate(zip(texts, vecs)):
             index.add_passage(Passage(id=f"p{i}", text=t,
                                       metadata={"n": i}), v)
-        c0 = counter()
+        c0, b0 = counter(), bm25_builds()
         t0 = time.perf_counter()
         index.build(graph_degree=32, complexity=64, alpha=1.2)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         build_launches = counter() - c0
+        bm25 = bm25_since(b0)
 
         searcher = IndexSearcher.load(base, device=dev)
         oracle = ExactEngine(vecs, metric="ip", device=dev).search(
@@ -1082,7 +1156,7 @@ def rag_build_search(torch, dev, name, texts, vecs, q, pick, counter,
         "recall10_at_complexity_64": out[64][2],
         "search_s_at_complexity_64": out[64][1],
         "launches_build": build_launches,
-        "launches_search": search_launches}
+        "launches_search": search_launches, "bm25_builds": bm25}
 
 
 def phase_rag(torch, dev, n_docs, counter, root):
@@ -1105,12 +1179,112 @@ def phase_rag(torch, dev, n_docs, counter, root):
     if hit1 < 0.99 or rec < 0.95 or rec64 < RAG_MIN_RECALL_64:
         raise AssertionError(f"rag: self-hit@1 {hit1}, recall@10 {rec} at "
                              f"complexity {RAG_COMPLEXITY}, {rec64} at 64")
+    check_bm25("rag", row["bm25_builds"])
     if row["launches_build"] <= 0 or row["launches_search"] <= 0:
         raise AssertionError("rag: the fused kernel was not launched "
                              f"(build {row['launches_build']}, search "
                              f"{row['launches_search']})")
     return (engine, torch.from_numpy(np.asarray(q, np.float32)).to(dev),
             pick, row, os.path.join(root, "indexes", "rag", "documents.leann"))
+
+
+def native_build_pair(texts, tmp, label):
+    """Bm25Scorer.build (which must take the native path) against the
+    Python build on `texts`: seconds of each build and save, arrays equal,
+    the saved files byte-equal."""
+    from leann_tpu_torch.index.bm25 import Bm25Scorer
+
+    b0 = bm25_builds()
+    t0 = time.perf_counter()
+    mine = Bm25Scorer.build(texts)
+    native_s = time.perf_counter() - t0
+    builds = bm25_since(b0)
+    t0 = time.perf_counter()
+    oracle = Bm25Scorer._build_python(texts)
+    python_s = time.perf_counter() - t0
+    paths, save_s, data = {}, {}, {}
+    for name, scorer in (("native", mine), ("python", oracle)):
+        paths[name] = os.path.join(tmp, f"{label}.{name}.bm25.npz")
+        t0 = time.perf_counter()
+        scorer.save(paths[name])
+        save_s[name] = time.perf_counter() - t0
+        with open(paths[name], "rb") as f:
+            data[name] = f.read()
+    return {"texts": len(texts), "native_s": native_s, "python_s": python_s,
+            "native_save_s": save_s["native"],
+            "python_save_s": save_s["python"],
+            "vocab": int(mine.vocab.shape[0]),
+            "postings": int(mine.post_docs.shape[0]),
+            "bytes": len(data["native"]),
+            "arrays_equal": bm25_equal(mine, oracle),
+            "files_byte_equal": data["native"] == data["python"],
+            "bm25_builds": builds}
+
+
+def phase_native(torch, dev, n_docs, counter, rag_base):
+    """The native host runtime (`leann_tpu_torch/native/`), no kernel: on
+    the rag phase's texts and on `recompute_texts(RECOMPUTE_N)`, the
+    native BM25 build against the Python build (arrays equal exactly,
+    `.bm25.npz` files byte-equal, seconds of each build and save);
+    IndexSearcher's in-memory build on a copy of the rag index without
+    its sidecar (native, equal to the sidecar); `scan_line_offsets` on
+    the rag index's passages JSONL against its offsets file."""
+    import ctypes
+
+    from leann_tpu_torch import native
+    from leann_tpu_torch.index import IndexSearcher
+    from leann_tpu_torch.index.bm25 import Bm25Scorer, bm25_path
+    from leann_tpu_torch.store.passages import offsets_path, passages_path
+
+    t_phase = time.perf_counter()
+    row, bad = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, texts in (("rag", rag_texts(n_docs)[1]),
+                             ("recompute", recompute_texts(RECOMPUTE_N))):
+            r = row[label] = native_build_pair(texts, tmp, label)
+            if not (all(r["arrays_equal"].values()) and r["files_byte_equal"]
+                    and r["bm25_builds"] == {"native": 1, "python": 0}):
+                bad.append(label)
+
+        # IndexSearcher.bm25() builds in memory when the sidecar is missing
+        src_dir = os.path.dirname(rag_base)
+        copy_dir = os.path.join(tmp, "indexes", "rag")
+        shutil.copytree(src_dir, copy_dir,
+                        ignore=shutil.ignore_patterns("*.bm25.npz"))
+        searcher = IndexSearcher.load(
+            os.path.join(copy_dir, os.path.basename(rag_base)), device=dev)
+        b0 = bm25_builds()
+        t0 = time.perf_counter()
+        scorer = searcher.bm25()
+        row["searcher_build_s"] = time.perf_counter() - t0
+        row["searcher_bm25_builds"] = bm25_since(b0)
+        row["searcher_equal_sidecar"] = all(bm25_equal(
+            scorer, Bm25Scorer.load(bm25_path(rag_base))).values())
+        del searcher
+        if not (row["searcher_equal_sidecar"] and row["searcher_bm25_builds"]
+                == {"native": 1, "python": 0}):
+            bad.append("searcher")
+
+    # the C ABI's JSONL scan against the passage store's offsets
+    lib = native._load_lib()
+    with open(passages_path(rag_base), "rb") as f:
+        buf = f.read()
+    with open(offsets_path(rag_base), "r", encoding="utf-8") as f:
+        want = np.sort(np.fromiter(json.load(f).values(), np.int64))
+    out = np.zeros(buf.count(b"\n") + 1, np.int64)
+    t0 = time.perf_counter()
+    got = lib.scan_line_offsets(
+        buf, len(buf), out.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        len(out))
+    row["scan_s"] = time.perf_counter() - t0
+    row["scan_bytes"], row["scan_lines"] = len(buf), int(got)
+    row["scan_equal_offsets"] = bool(np.array_equal(out[:got], want))
+    if not row["scan_equal_offsets"]:
+        bad.append("scan_line_offsets")
+    row["phase_s"] = time.perf_counter() - t_phase
+    emit({"phase": "native", **row})
+    if bad:
+        raise AssertionError(f"native: {bad} failed their gates")
 
 
 def phase_sift(torch, dev, n, counter):
@@ -1843,12 +2017,13 @@ def phase_recompute(torch, dev, n, counter):
             builder.add_passage(Passage(id=f"p{i}", text=t,
                                         metadata={"facet": i % 37}), v)
         METRICS.reset()
-        c0 = counter()
+        c0, b0 = counter(), bm25_builds()
         t0 = time.perf_counter()
         builder.build(graph_degree=32, complexity=48)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         launches_build = counter() - c0
+        bm25 = bm25_since(b0)
         spans = METRICS.snapshot()
         split = {k: spans[f"span.build.{k}.seconds"]["sum"]
                  for k in ("vamana", "tokens", "bm25")}
@@ -1955,6 +2130,8 @@ def phase_recompute(torch, dev, n, counter):
           "graph": {"r": 32, "l": 48, "passes": 2},
           "embed_s": embed_s, "texts_per_s": n / embed_s,
           "build_s": build_s, "build_split_s": split,
+          "bm25_s_python_build": RECOMPUTE_BM25_S_PYTHON,
+          "bm25_builds": bm25,
           "launches_build": launches_build,
           "stored_engine": stored_engine,
           "launches_stored_search": launches_search,
@@ -1976,6 +2153,7 @@ def phase_recompute(torch, dev, n, counter):
           "phase_s": time.perf_counter() - t_phase, "gpu": smi()})
     if not np.isfinite(vecs).all() or vecs.shape != (n, enc.dimensions):
         raise AssertionError("recompute: embeddings not finite or misshapen")
+    check_bm25("recompute", bm25)
     if best < RECOMPUTE_MIN_RECALL:
         raise AssertionError(f"recompute: recall@10 {best} at the better beam")
     if not score_err <= RECOMPUTE_SCORE_TOL:
@@ -2486,6 +2664,7 @@ def phase_cli(torch, dev, n_docs, counter, rag_base, pick, rag_row):
     from leann_tpu_torch.utils import METRICS
 
     t_phase = time.perf_counter()
+    b0 = bm25_builds()
     row, bad, steps_s, launches = {}, [], {}, {}
     t_step = [t_phase]
     c_step = [counter()]
@@ -2623,7 +2802,7 @@ def phase_cli(torch, dev, n_docs, counter, rag_base, pick, rag_row):
         lap("update")
         t0 = time.perf_counter()
         out = cli_ok(["--device", d, "reindex", "cli", "--backend-name",
-                      "ivf"])
+                      "ivf", "--rebuild-bm25"])
         row["reindex_ivf_s"] = time.perf_counter() - t0
         row["reindex_out"] = out.strip().splitlines()[1:]
         got = sum(cli_search(dev, texts[i], "cli")[0][:1]
@@ -2650,6 +2829,11 @@ def phase_cli(torch, dev, n_docs, counter, rag_base, pick, rag_row):
         row["list_remove_config"] = [listed.split()[0], removed.strip(),
                                      cfg.strip().endswith("config.toml")]
         lap("list_remove_config")
+        # build, update and reindex --rebuild-bm25 each build BM25 once;
+        # counted before the serve step resets METRICS
+        row["bm25_builds"] = bm25_since(b0)
+        if row["bm25_builds"] != {"native": 3, "python": 0}:
+            bad.append("bm25 builds")
 
         # 6. serve: ServerState as serve_cmd.run builds it
         meta = IndexMeta.load(meta_path(rag_base))
@@ -2931,6 +3115,7 @@ def main() -> int:
     rag_root = tempfile.mkdtemp(prefix="chip_smoke_rag_")
     try:
         rag = drive(phase_rag, [FUSED["name"]], RAG_N, rag_root)
+        drive(phase_native, (), RAG_N, rag[4])
         *sift, sift_data = drive(phase_sift, [FUSED["name"]], SIFT_N)
         deep = drive(phase_deep, [PQ["name"]], DEEP_N)
         *ivf, ivf_data = drive(phase_ivf, [DOTS["name"]], IVF_N)

@@ -3,8 +3,9 @@
 The package keeps the module names and public signatures of `leann_tpu`
 so each piece has an obvious counterpart, and imports nothing of it (nor
 of JAX): the host modules it needs (`store/`, `index/{bm25,filter,query}`,
-`embed/`, `llm/`, `chunker/`, `config.py`, `cli/common.py`, `utils/`) are
-its own copies, reading and writing the same index files byte for byte.
+`embed/`, `llm/`, `chunker/`, `config.py`, `cli/common.py`, `utils/`,
+`native/` with its C++ source `csrc/leann_native.cpp`) are its own
+copies, reading and writing the same index files byte for byte.
 `api.py` (`Index`, `open_index`) is the library surface, with `rag/` and
 `agent/` over it.
 

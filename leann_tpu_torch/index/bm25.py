@@ -19,6 +19,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from leann_tpu_torch.utils.metrics import METRICS
+from leann_tpu_torch.utils.trace import logger
+
 K1 = 1.2
 B = 0.75
 
@@ -66,6 +69,20 @@ class Bm25Scorer:
 
     @staticmethod
     def build(documents: Sequence[str]) -> "Bm25Scorer":
+        """The native C++ build when the library is available, else the
+        Python build (the oracle); each path is counted in METRICS as
+        `bm25.build.native` / `bm25.build.python`."""
+        try:
+            from leann_tpu_torch.native import bm25_build_native
+
+            built = bm25_build_native(documents)
+            if built is not None:
+                METRICS.inc("bm25.build.native")
+                return Bm25Scorer(*built)
+        except Exception as e:  # native path is best-effort; Python is the oracle
+            logger.warning("native BM25 build failed (%s: %s); building in "
+                           "Python", type(e).__name__, e)
+        METRICS.inc("bm25.build.python")
         return Bm25Scorer._build_python(documents)
 
     @staticmethod

@@ -136,6 +136,15 @@ def test_port_imports_no_jax_and_no_reference(tmp_path):
         b.build(graph_degree=8, complexity=16)
         res = IndexSearcher.load(base, device="cpu").search(vecs[:2])
         assert res[0][0].id == "d0", res[0][0].id
+        # the index's BM25 sidecar came from the port's native build
+        import shutil
+        from leann_tpu_torch import native
+        from leann_tpu_torch.utils import METRICS
+        if shutil.which("g++"):
+            counts = METRICS.snapshot()
+            assert counts["bm25.build.native"]["value"] == 1, counts
+            assert "bm25.build.python" not in counts, counts
+            assert native.bm25_build_native(texts)[4].shape == (200,)
         FusedBeamEngine(vecs, np.zeros((200, 8), np.int32), 0,
                         device="cpu").search(vecs[:1], k=3)
         pq = PqBeamEngine(vecs, np.zeros((200, 8), np.int32), 0, m=8,
