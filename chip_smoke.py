@@ -44,9 +44,14 @@ on stdout:
            beside) held to the same tolerance and timed in turns
            (`ms_pr3`), the reuse (distinct buckets, queries per bucket),
            the work items and CTAs per SM;
-           gather_score vs gather_score_plain: D of 96, 128, 64 (16-byte
-           loads), 100 (4-byte) and 50 (single bytes), R of 48, 128, 7
-           and 200, odd batches, duplicate ids and the rows 0 and N-1
+           gather_score vs gather_score_plain: D of 96, 128, 64 (the
+           staged kernel), 100 (4-byte) and 50 (single bytes: the per-row
+           kernel), R of 48, 128, 7 and 200, odd batches, duplicate ids
+           and the rows 0 and N-1, and row offsets past 2^31 bytes (17M x
+           128 made on the card, B=64, R=48, ids N-1, 0 and rows above
+           2^24); each row with the path taken, the launch plan, and the
+           first design (`csrc/gather_score_rowwise.cu`, built beside)
+           held to the same tolerance and timed in turns (`ms_pr4`)
   rag      StreamingIndexBuilder over 20,000 fake-embedded 768-d
            passages (backend hnsw, R=32, L=64, ip), then
            IndexSearcher.search on 256 passage texts at complexity 64
@@ -88,10 +93,12 @@ on stdout:
            512 and 2048, calibrate_nprobe(0.95), a profile of each path
   gather   `evals.gather_roofline.run` at the reference's default shape:
            a 10M x 128 int8 corpus made on the card, B=2048, R=48, 50
-           calls per CUDA-event window on distinct ids; the plain gather
-           + product and kernel gather_score: rows/s, effective GB/s, the
-           traversal-QPS ceiling; each held against the plain version on
-           the window's first call
+           calls per window on distinct ids; the plain gather + product
+           and kernel gather_score: rows/s, effective GB/s, the
+           traversal-QPS ceiling, by the queued CUDA-event window and by
+           the CUDA-graph timer; each held against the plain version on
+           the window's first call; the staged kernel must be the one
+           launched
   ivfpq    `evals/ivfpq_device_check.py`'s configuration on the ivf8
            phase's corpus, centers and assignment: IvfPqEngine(m=16,
            ksub=256, rescore="int8") at 10M x 96 l2, nprobe 16,
@@ -214,7 +221,12 @@ on stdout:
            (B=512 and 2048, and a hot case: B=2048 with every query
            probing the 8 most-probed buckets); gather_score at the
            gather phase's (10M x 128, B=2048, R=48, distinct ids per
-           call); each timed beside
+           call; its row also carries what `gather_timers` took right
+           after the gather phase, outside any phase's count: both
+           designs by the graph timer, the kernel's own time by
+           torch.profiler, both queued windows traced into kernel time
+           and idle gap per call, the SM and memory clocks around them);
+           each timed beside
            its bound, the bucket kernels also beside torch.bmm over
            buckets gathered beforehand, gather_score beside `corpus[ids]`
            + torch.bmm in bf16, both inside the timed window
@@ -270,6 +282,7 @@ IVF_MIN_RECALL = 0.95
 IVF8_MIN_RECALL = 0.924  # the first card run (0.9444) less 0.02
 RAG_IVF_MIN_RECALL = 0.9
 GATHER_N = 10_000_000  # the roofline's default corpus: 10M x 128 int8
+GATHER_BIG_N = 17_000_000  # x 128 bytes: row offsets past 2^31
 IVFPQ_NPROBE = 16      # evals/ivfpq_device_check.py's defaults
 IVFPQ_RESCORE_FACTOR = 16
 # the first card run's recall@10 less 0.02: 0.8720 at 10M x 96 (nprobe 16,
@@ -499,10 +512,9 @@ def check_bm25(phase, builds):
                              "native")
 
 
-def smi() -> str:
+def smi(query="name,power.limit") -> str:
     return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
 
@@ -836,6 +848,56 @@ def check_case_bucket(torch, label, kind, args, metric, reps, library=False):
     return out
 
 
+def gather_timers(torch, corpus, ids, q):
+    """The roofline shape's other timers, both designs: per call by the
+    graph timer (`graph_window_ms`, the window captured once), the
+    kernel's own time by torch.profiler over one unqueued pass
+    (`kernel_device_ms`, over the `kernel_events` it recorded of the M
+    calls), and the queued window traced (`window_trace`: kernel time and
+    idle gap per call) between two readings of the SM and memory clocks.
+    Run right after the gather phase, whose corpus and ids it takes, and
+    outside any phase's launch count: later in the run the profiler
+    records none of this kernel's launches."""
+    from leann_tpu_torch.evals.gather_phases import rowwise_score
+    from leann_tpu_torch.evals.gather_roofline import (
+        graph_window_ms, window_trace,
+    )
+    from leann_tpu_torch.ops import gather_score as gs
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    m = ids.shape[0]
+    current = lambda i: gs.gather_score(corpus, i, q)
+    earlier = lambda i: rowwise_score(corpus, i, q)
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        for i in ids:
+            current(i)
+        torch.cuda.synchronize()
+    # per recorded kernel, not per call: a long run's profiler records only
+    # some of the calls' kernels
+    evs = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and "gather_score" in e.key]
+    events = sum(e.count for e in evs)
+    out = {"clocks_sm_mem": [smi("clocks.sm,clocks.mem")]}
+    out.update({
+        "ms_graph": float(np.mean(graph_window_ms(
+            current, [ids], q.device, 10))) / m,
+        "ms_pr4_graph": float(np.mean(graph_window_ms(
+            earlier, [ids], q.device, 10))) / m,
+        "kernel_device_ms": (sum(e.device_time_total for e in evs) / 1e3
+                             / events if events else None),
+        "kernel_events": events,
+        "trace": window_trace(current, ids, q.device, "gather_score"),
+        "trace_pr4": window_trace(earlier, ids, q.device, "gather_score"),
+    })
+    out["clocks_sm_mem"].append(smi("clocks.sm,clocks.mem"))
+    return out
+
+
 def gather_bound(b, r, d):
     """(bound ms, "bytes" or "operations") of one gather_score call: the
     B*R gathered rows (D bytes each), the ids, the queries and the output,
@@ -850,25 +912,39 @@ def gather_bound(b, r, d):
 def check_case_gather(torch, label, corpus, ids, q, library=False):
     """gather_score vs gather_score_plain on the card, on the first
     [B, R] block of the id window `ids` [M, B, R]: within 1e-5 x |q| x
-    (largest gathered row norm), since both add the same exact products
-    in another order. Times are per call over three passes of the M
-    blocks of the window after a warm pass, by the roofline's
-    `window_ms` (distinct ids per call, so a call does not find its rows
-    in L2 from the call before; each pass queued behind other device
-    work, since a launch costs the host more than the card at these
-    sizes); `kernel_device_ms` is the kernel's own time by torch.profiler
-    over one pass. With `library`, also `corpus[ids]` widened to bf16
-    then torch.bmm, both inside the timed window, a yardstick the port
-    never calls. Raises on disagreement."""
+    (largest gathered row norm), no NaN, since both add the same exact
+    products in another order; the same checks for the first design
+    (`rowwise_score`). The kernel must take the path its shape names:
+    staged where D % 16 == 0 and the corpus is 16-byte aligned, else
+    per-row. Times are per call over three passes of the M blocks of the
+    window after a warm pass, by the roofline's `window_ms` (distinct
+    ids per call, so a call does not find its rows in L2 from the call
+    before; each pass queued behind other device work, since a launch
+    costs the host more than the card at these sizes), the kernel and
+    the first design in turns (first, current, current, first: `ms`,
+    `ms_pr4`). With `library`, also `corpus[ids]` widened to bf16 then
+    torch.bmm, both inside the timed window, a yardstick the port never
+    calls. Raises on disagreement."""
+    from leann_tpu_torch.evals.gather_phases import rowwise_score
     from leann_tpu_torch.evals.gather_roofline import window_ms
     from leann_tpu_torch.ops import gather_score as gs
 
     m, b, r = ids.shape
-    d = corpus.shape[1]
+    n, d = corpus.shape
+    paths = dict(gs.gather_score.paths)
     got = gs.gather_score(corpus, ids[0], q)
+    path = next(k for k, v in gs.gather_score.paths.items()
+                if v != paths[k])
+    plan = gs.launch_plan(b, r, d, gs._sm_count(q.device.index or 0),
+                          corpus.data_ptr() % 16 == 0)
+    want_path = ("staged" if d % 16 == 0 and corpus.data_ptr() % 16 == 0
+                 else "rowwise")
     ref = gs.gather_score_plain(corpus, ids[0], q)
+    before = rowwise_score(corpus, ids[0], q)
     err = float((got - ref).abs().max())
     nan = bool(torch.isnan(got).any())
+    e_err = float((before - ref).abs().max())
+    e_nan = bool(torch.isnan(before).any())
     tol = 1e-5 * float(q.norm(dim=1).max()) * float(
         corpus[ids[0].long()].float().norm(dim=2).max())
 
@@ -877,26 +953,34 @@ def check_case_gather(torch, label, corpus, ids, q, library=False):
         return float(np.mean([window_ms(fn, ids, q.device)
                               for _ in range(3)])) / m
 
-    ms = per_call(lambda i: gs.gather_score(corpus, i, q))
+    current = lambda i: gs.gather_score(corpus, i, q)
+    earlier = lambda i: rowwise_score(corpus, i, q)
+    turns = {"current": [], "earlier": []}
+    for which in ("earlier", "current", "current", "earlier"):
+        turns[which].append(per_call(current if which == "current"
+                                     else earlier))
     plain_ms = per_call(lambda i: gs.gather_score_plain(corpus, i, q))
     bound_ms, bound_by = gather_bound(b, r, d)
-    lib_ms = device_ms = None
+    lib_ms = None
     if library:
         qb = q.to(torch.bfloat16)[:, :, None]
         lib_ms = per_call(lambda i: torch.bmm(
             corpus[i.long()].to(torch.bfloat16), qb))
-        prof = profile(torch, lambda: [gs.gather_score(corpus, i, q)
-                                       for i in ids])
-        device_ms = sum(v for k, v in prof["kernels_ms"].items()
-                        if "gather_score" in k) / m
-    out = {"case": label, "n": corpus.shape[0], "b": b, "r": r, "d": d,
-           "calls": m, "exact": bool(torch.equal(got, ref)),
-           "max_abs_err": err, "tol": tol, "ms": ms,
-           "kernel_device_ms": device_ms, "plain_ms": plain_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
-    if nan or not err <= tol:
+    out = {"case": label, "n": n, "b": b, "r": r, "d": d,
+           "calls": m, "path": path, "exact": bool(torch.equal(got, ref)),
+           "max_abs_err": err, "tol": tol,
+           "ms": float(np.mean(turns["current"])), "ms_turns": turns["current"],
+           "ms_pr4": float(np.mean(turns["earlier"])),
+           "earlier_turns": turns["earlier"], "earlier_max_abs_err": e_err,
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": lib_ms,
+           **{k: plan[k] for k in ("qpc", "rps", "chunks", "grid",
+                                   "ctas_per_sm", "smem_bytes")}}
+    if (nan or not err <= tol or e_nan or not e_err <= tol
+            or path != want_path or plan["path"] != want_path):
         raise AssertionError(f"gather_score disagrees with its plain "
-                             f"version: {json.dumps(out)}")
+                             f"version or took the wrong path: "
+                             f"{json.dumps(out)}")
     return out
 
 
@@ -929,7 +1013,7 @@ def phase_build():
 
     libs = ("fused_beam", "pq_beam", "ivf_bucket_dots", "ivf8_scan",
             "gather_score", "pq_beam_scan", "ivf_bucket_dots_pairs",
-            "ivf8_scan_pairs")
+            "ivf8_scan_pairs", "gather_score_rowwise")
     gpp = {}
 
     def build_native():
@@ -1063,10 +1147,15 @@ def phase_kernels_ivf(torch, dev):
 
 
 def phase_kernels_gather(torch, dev):
-    """gather_score vs its plain version on random corpora: D with
-    16-byte loads (96, 128, 64), 4-byte loads (100) and single bytes
-    (50), R from 7 to 200, odd batches; every query's first two ids are
-    the rows N-1 and 0 and one query's ids are all the same row."""
+    """gather_score vs its plain version on random corpora: D % 16 == 0
+    (96, 128, 64: the staged kernel), 4-byte loads (100) and single bytes
+    (50: the per-row kernel), R from 7 to 200, odd batches; every query's
+    first two ids are the rows N-1 and 0 and one query's ids are all the
+    same row. Then row offsets past 2^31 bytes: a 17M x 128 corpus made
+    on the card, B=64, R=48, every query's ids holding N-1, 0 and eight
+    rows above 2^24."""
+    from leann_tpu_torch.evals.gather_roofline import make_corpus
+
     g = torch.Generator().manual_seed(9)
     rows = []
     for n, b, d, r in ((5000, 17, 96, 48), (5000, 31, 128, 128),
@@ -1081,6 +1170,18 @@ def phase_kernels_gather(torch, dev):
         rows.append(check_case_gather(
             torch, f"N{n}/B{b}/D{d}/R{r}", corpus.to(dev), ids.to(dev),
             q.to(dev)))
+    n, b, d, r = GATHER_BIG_N, 64, 128, 48
+    gen = torch.Generator(device=dev).manual_seed(10)
+    corpus = make_corpus(n, d, gen, dev)
+    ids = torch.randint(0, n, (4, b, r), generator=gen, device=dev,
+                        dtype=torch.int32)
+    ids[:, :, 0], ids[:, :, 1] = n - 1, 0
+    ids[:, :, 2:10] = torch.randint(1 << 24, n, (4, b, 8), generator=gen,
+                                    device=dev, dtype=torch.int32)
+    q = torch.randn((b, d), generator=gen, device=dev) * 2
+    rows.append(check_case_gather(torch, f"N{n}/B{b}/D{d}/R{r} past 2^31",
+                                  corpus, ids, q))
+    del corpus
     emit({"phase": "kernels", "kernel": GATHER["name"], "cases": rows,
           "bit_equal_cases": sum(c["exact"] for c in rows),
           "library_ms": None})
@@ -1684,6 +1785,7 @@ def phase_gather(torch, dev, n, counter):
     default shape: both engines, rows/s and effective GB/s; `run` holds
     each engine against the plain version on the window's first call."""
     from leann_tpu_torch.evals import gather_roofline
+    from leann_tpu_torch.ops.gather_score import gather_score
 
     b, r, d = 2048, 48, 128
     t0 = time.perf_counter()
@@ -1691,14 +1793,19 @@ def phase_gather(torch, dev, n, counter):
     corpus = gather_roofline.make_corpus(n, d, gen, dev)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
+    paths = dict(gather_score.paths)
     rows = gather_roofline.run(n=n, b=b, r=r, m_scan=50, reps=10, d=d,
                                device=dev, corpus=corpus)
+    paths = {k: v - paths[k] for k, v in gather_score.paths.items()}
     by = {row["engine"]: row for row in rows}
     emit({"phase": "gather", "n": n, "d": d, "b": b, "r": r,
           "corpus_gb": n * d / 1e9, "gen_s": gen_s, "rows": rows,
           "kernel_over_torch": (by["gather-cuda"]["rows_per_s"]
                                 / by["gather-torch"]["rows_per_s"]),
-          "launches": counter()})
+          "launches": counter(), "paths": paths})
+    if paths["rowwise"] or not paths["staged"]:
+        raise AssertionError(f"gather: the roofline shape must launch the "
+                             f"staged kernel only: {paths}")
     ids = torch.randint(0, n, (20, b, r), generator=gen, device=dev,
                         dtype=torch.int32)
     q = torch.randn((b, d), generator=gen, device=dev)
@@ -3047,9 +3154,10 @@ def phase_kernels_main(torch, rag, sift, deep, ivf, ivf8, gather, recompute,
         10))
     emit({"phase": "kernels_main", "kernel": IVF8["name"], "cases": ivf8_rows,
           "library_ms": ivf8_rows[-2]["library_ms"]})
-    g_corpus, g_ids, g_q = gather
+    g_corpus, g_ids, g_q, g_timers = gather
     gather_rows = [check_case_gather(torch, "gather roofline", g_corpus,
                                      g_ids, g_q, library=True)]
+    gather_rows[-1].update(g_timers)
     emit({"phase": "kernels_main", "kernel": GATHER["name"],
           "cases": gather_rows,
           "library_ms": gather_rows[-1]["library_ms"]})
@@ -3121,6 +3229,7 @@ def main() -> int:
         *ivf, ivf_data = drive(phase_ivf, [DOTS["name"]], IVF_N)
         *ivf8, ivf8_data = drive(phase_ivf8, [IVF8["name"]], IVF8_N)
         gather = drive(phase_gather, [GATHER["name"]], GATHER_N)
+        gather += (gather_timers(torch, *gather),)
         drive(phase_ivfpq, (), IVF8_N, ivf8_data, ivf_data)
         del ivf_data, ivf8_data
         drive(phase_rag_ivf, (), RAG_N)

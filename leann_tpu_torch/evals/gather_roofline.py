@@ -22,17 +22,27 @@ ratio to the plain gather as the signal.
 
 One JSON line per engine (`torch` = the plain gather + product, `cuda` =
 the kernel): rows/s, effective GB/s, and the derived traversal-QPS
-ceiling at R x hops rows per query. Times are device times by CUDA
-events over `--m-scan` calls per window on distinct ids, the window
-queued behind other device work so that launch latency stays outside it
-(host clock when run on the CPU, which says nothing of a card).
+ceiling at R x hops rows per query, by two timers over `--m-scan` calls
+per window on distinct ids. `per_call_ms` (`window_ms`): CUDA events
+around the window's calls queued behind other device work, so that the
+host's launch latency stays outside it; the device's own gap between
+back-to-back launches stays inside. `per_call_graph_ms`
+(`graph_window_ms`): the window's calls captured once in a CUDA graph
+and its replays timed by CUDA events, the counterpart of the
+reference's one dispatch of a `lax.scan` over the calls
+(`evals/gather_roofline.py:97-107`). On the CPU only the host clock
+runs (`timer` says `host_clock`), which says nothing of a card.
+`window_trace` profiles one queued window and splits its time into
+the kernels' own durations and the idle gaps between them.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
+import tempfile
 import time
 from typing import List, Sequence
 
@@ -85,6 +95,75 @@ def window_ms(fn, ids_window, dev) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
+def graph_window_ms(fn, ids_windows, dev, reps: int) -> List[float]:
+    """Milliseconds of fn over every [B, R] id block of a window, each
+    window's calls captured once in a CUDA graph; `reps` replays, the
+    windows in turn, each timed by CUDA events. A replay launches the
+    calls back to back from the device's own queue, with no host launch
+    between them (fn must have run once before, outside the capture)."""
+    graphs = []
+    for ids_window in ids_windows:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for ids in ids_window:
+                fn(ids)
+        graphs.append(g)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for g in graphs:                                           # warm
+        g.replay()
+    times = []
+    for i in range(reps):
+        start.record()
+        graphs[i % len(graphs)].replay()
+        end.record()
+        torch.cuda.synchronize(dev)
+        times.append(start.elapsed_time(end))
+    return times
+
+
+def window_trace(fn, ids_window, dev, name: str) -> dict:
+    """One queued window (`window_ms`) under torch.profiler: from the
+    trace's kernel events, the mean, least and largest duration of the
+    kernels whose name holds `name`, the mean idle gap between two of
+    them, their span per call, and the gap between the stall's last
+    kernel and the first call. Per call, `span_per_call_us` =
+    `kernel_us` + `gap_us`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ms = window_ms(fn, ids_window, dev)
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    finally:
+        os.remove(path)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    kernels = sorted((e for e in events if e.get("cat") == "kernel"),
+                     key=lambda e: e["ts"])
+    mine = [e for e in kernels if name in e["name"]]
+    if not mine:
+        raise AssertionError(f"no {name} kernel in the window's trace")
+    dur = [e["dur"] for e in mine]
+    gaps = [b["ts"] - (a["ts"] + a["dur"]) for a, b in zip(mine, mine[1:])]
+    before = [e["ts"] + e["dur"] for e in kernels
+              if name not in e["name"] and e["ts"] < mine[0]["ts"]]
+    span = mine[-1]["ts"] + mine[-1]["dur"] - mine[0]["ts"]
+    return {"calls": len(mine), "window_ms": ms,
+            "kernel_us": sum(dur) / len(dur), "kernel_min_us": min(dur),
+            "kernel_max_us": max(dur),
+            "gap_us": sum(gaps) / max(1, len(gaps)),
+            "gap_max_us": max(gaps, default=0.0),
+            "span_per_call_us": span / len(mine),
+            "first_after_stall_us": (mine[0]["ts"] - max(before)
+                                     if before else None)}
+
+
 def run(
     n: int = 10_000_000,
     b: int = 2048,
@@ -99,9 +178,11 @@ def run(
     corpus: torch.Tensor = None,
 ) -> List[dict]:
     """One row per engine (the reference's keys: per_call_ms,
-    per_call_std_ms, rows_per_s, eff_gb_s, traversal_qps_ceiling). Each
-    engine's first call of the first window is held against the plain
-    version within 1e-5 x |q| x (largest gathered row norm); a
+    per_call_std_ms, rows_per_s, eff_gb_s, traversal_qps_ceiling; on a
+    card also the graph timer's per_call_graph_ms, per_call_graph_std_ms,
+    rows_per_s_graph, eff_gb_s_graph and traversal_qps_ceiling_graph).
+    Each engine's first call of the first window is held against the
+    plain version within 1e-5 x |q| x (largest gathered row norm); a
     disagreement raises. `corpus` reuses an [n, d] int8 tensor already on
     the device."""
     dev = resolve_device(device)
@@ -144,24 +225,35 @@ def run(
         window_ms(call, windows[0], dev)                       # warm
         times = [window_ms(call, windows[i % len(windows)], dev)
                  for i in range(reps)]
-        per_call = float(np.mean(times)) / m_scan / 1e3
-        std_call = float(np.std(times)) / m_scan / 1e3
-        rows_s = b * r / per_call
+        row = {"engine": f"gather-{engine}", "n": n, "d": d, "b": b,
+               "r": r, "m_scan": m_scan, "reps": reps,
+               **_rates(times, "", m_scan, b, r, d, hops)}
+        if dev.type == "cuda":
+            row.update(_rates(graph_window_ms(call, windows, dev, reps),
+                              "_graph", m_scan, b, r, d, hops))
         rows.append({
-            "engine": f"gather-{engine}", "n": n, "d": d, "b": b, "r": r,
-            "m_scan": m_scan, "reps": reps,
-            "per_call_ms": round(per_call * 1e3, 4),
-            "per_call_std_ms": round(std_call * 1e3, 4),
-            "rows_per_s": round(rows_s),
-            "eff_gb_s": round(rows_s * d / 1e9, 2),
-            # a traversal batch needs `hops` sequential gathers of B*R
-            "traversal_qps_ceiling": round(rows_s / (r * hops)),
-            "max_abs_err": err, "tol": tol,
+            **row, "max_abs_err": err, "tol": tol,
             "bit_equal": bool(torch.equal(got, want)),
             "device": device_name,
             "timer": "cuda_events" if dev.type == "cuda" else "host_clock",
         })
     return rows
+
+
+def _rates(times_ms, suffix, m_scan, b, r, d, hops) -> dict:
+    """per_call_ms / per_call_std_ms / rows_per_s / eff_gb_s /
+    traversal_qps_ceiling from window times (each key + `suffix`)."""
+    per_call = float(np.mean(times_ms)) / m_scan / 1e3
+    std_call = float(np.std(times_ms)) / m_scan / 1e3
+    rows_s = b * r / per_call
+    return {
+        f"per_call{suffix}_ms": per_call * 1e3,
+        f"per_call{suffix}_std_ms": std_call * 1e3,
+        f"rows_per_s{suffix}": round(rows_s),
+        f"eff_gb_s{suffix}": round(rows_s * d / 1e9, 2),
+        # a traversal batch needs `hops` sequential gathers of B*R
+        f"traversal_qps_ceiling{suffix}": round(rows_s / (r * hops)),
+    }
 
 
 def main(argv=None) -> int:

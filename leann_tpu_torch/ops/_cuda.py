@@ -65,6 +65,12 @@ SIGNATURES = {
     },
     "gather_score": {
         "leann_gather_score": (
+            [_PTR] * 4 + [ctypes.c_longlong] + [_I32] * 8 + [_PTR], _I32),
+        "leann_gather_score_rowwise": (
+            [_PTR] * 4 + [ctypes.c_longlong] + [_I32] * 5 + [_PTR], _I32),
+    },
+    "gather_score_rowwise": {
+        "leann_gather_score": (
             [_PTR] * 4 + [ctypes.c_longlong] + [_I32] * 5 + [_PTR], _I32),
     },
 }
@@ -133,11 +139,14 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def count_launch(wrapper) -> None:
-    """Add one to `wrapper.launches` under a lock: the HTTP server's
-    flush pool launches kernels from two threads at once."""
+def count_launch(wrapper, path: str = None) -> None:
+    """Add one to `wrapper.launches` (and to `wrapper.paths[path]`, for a
+    wrapper that chooses between two kernels) under a lock: the HTTP
+    server's flush pool launches kernels from two threads at once."""
     with _COUNT_LOCK:
         wrapper.launches += 1
+        if path is not None:
+            wrapper.paths[path] += 1
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

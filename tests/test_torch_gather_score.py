@@ -126,3 +126,105 @@ def test_roofline_run_tiny_on_cpu(capsys):
          "--engines", "torch", "--device", "cpu"]) == 0
     out = capsys.readouterr().out.strip().splitlines()
     assert len(out) == 1 and '"engine": "gather-torch"' in out[0]
+
+
+# --------------------------------------------------------- the launch plan
+
+SMS = 132                                     # an H100 SXM
+GRID_SHAPES = [(17, 48, 96), (31, 128, 128), (9, 7, 64), (1, 48, 128),
+               (64, 48, 128), (2048, 48, 128), (6, 200, 96), (5, 200, 50),
+               (33, 48, 100), (3, 512, 1024), (2, 512, 16), (1, 1, 16)]
+
+
+def _check_plan(p, b, r, d):
+    assert p["smem_bytes"] <= tgs.SMEM_PER_CTA
+    if p["path"] == "rowwise":
+        assert p["grid"] == b and p["smem_bytes"] == 4 * d
+        return
+    qpc, rps, chunks = p["qpc"], p["rps"], p["chunks"]
+    assert d % 16 == 0 and 1 <= qpc <= b and 1 <= rps <= r
+    assert chunks * rps >= r > (chunks - 1) * rps     # no empty chunk
+    assert p["tiles"] == -(-b // qpc) * chunks
+    assert p["stage_bytes"] % 16 == 0
+    assert p["smem_bytes"] == 2 * p["stage_bytes"]
+    assert p["stage_bytes"] >= qpc * (rps * d + 4 * d + rps * 4)
+    assert qpc * rps <= tgs.TILE_ROWS
+    assert 1 <= p["ctas_per_sm"] <= tgs.CTAS_PER_SM
+    assert p["ctas_per_sm"] * (p["smem_bytes"] + 1024) <= tgs.SMEM_PER_SM
+    assert 1 <= p["grid"] <= min(p["tiles"], SMS * p["ctas_per_sm"])
+
+
+@pytest.mark.parametrize("b", [1, 7, 2048])
+def test_launch_plan_fits_for_every_r_and_d(b):
+    """R = 1..512 and D = 1..1024: the plan fits the card's 227 KB a
+    block and an SM's 228 KB, its chunks cover R, and D % 16 == 0 takes
+    the staged kernel."""
+    plan = tgs.launch_plan.__wrapped__
+    for d in range(1, 1025):
+        for r in range(1, 513):
+            p = plan(b, r, d, SMS)
+            assert p["path"] == ("staged" if d % 16 == 0 else "rowwise")
+            _check_plan(p, b, r, d)
+
+
+def _tile_rows(p, b, r):
+    """The staged kernel's tile -> (query, row) mapping, as
+    `csrc/gather_score.cu` (`load_tile`, `copy_rows`, `score`) walks it."""
+    seen = []
+    for t in range(p["tiles"]):
+        g, c = divmod(t, p["chunks"])
+        for k in range(p["qpc"] * p["rps"]):
+            qi, j = divmod(k, p["rps"])
+            bb, jj = g * p["qpc"] + qi, c * p["rps"] + j
+            if bb < b and jj < r:
+                seen.append((bb, jj))
+    return seen
+
+
+@pytest.mark.parametrize("b,r,d", GRID_SHAPES)
+def test_launch_plan_tiles_cover_each_row_once(b, r, d):
+    p = tgs.launch_plan(b, r, d, SMS)
+    _check_plan(p, b, r, d)
+    if p["path"] == "staged":
+        seen = _tile_rows(p, b, r)
+        assert len(seen) == b * r == len(set(seen))
+    # the grid keeps the card full: every SM slot has a tile where the
+    # tiles allow
+    if p["path"] == "staged" and p["tiles"] >= SMS * p["ctas_per_sm"]:
+        assert p["grid"] == SMS * p["ctas_per_sm"]
+
+
+def test_launch_plan_roofline_shape_and_alignment():
+    p = tgs.launch_plan(2048, 48, 128, SMS)
+    assert (p["path"], p["qpc"], p["rps"], p["chunks"]) == ("staged", 2, 48, 1)
+    assert p["grid"] == SMS * tgs.CTAS_PER_SM and p["tiles"] == 1024
+    # an unaligned corpus, or a D too large for two stages, goes per-row
+    assert tgs.launch_plan(2048, 48, 128, SMS, aligned=False)["path"] == (
+        "rowwise")
+    assert tgs.launch_plan(4, 4, 30000, SMS)["path"] == "rowwise"
+    # large R at large D is cut into chunks of one stage
+    big = tgs.launch_plan(2, 512, 1024, SMS)
+    assert big["chunks"] > 1 and big["qpc"] == 1
+
+
+def test_count_launch_counts_the_path():
+    from leann_tpu_torch.ops import _cuda
+
+    def wrapper():
+        pass
+
+    wrapper.launches, wrapper.paths = 0, {"staged": 0, "rowwise": 0}
+    _cuda.count_launch(wrapper, "staged")
+    _cuda.count_launch(wrapper, "rowwise")
+    _cuda.count_launch(wrapper, "staged")
+    assert wrapper.launches == 3 and wrapper.paths == {"staged": 2,
+                                                       "rowwise": 1}
+
+
+def test_roofline_run_on_cpu_has_host_clock_and_no_graph_timer():
+    rows = gather_roofline.run(n=1000, b=4, r=3, m_scan=2, reps=2, hops=10,
+                               d=32, device="cpu")
+    for row in rows:
+        assert row["timer"] == "host_clock"
+        assert not any("graph" in k for k in row)
+        assert row["traversal_qps_ceiling"] > 0
