@@ -69,6 +69,21 @@ on stdout:
            R=48 L=80 alpha 1.2 wave 8192, graph saved and reloaded,
            FusedBeamEngine at beam 64: recall@10 on 1024 queries and
            device QPS at batch 2048 timed with CUDA events
+  bench    `leann_tpu_torch.bench.run` (`python -m leann_tpu_torch.bench`,
+           the root bench.py's counterpart) for flat, ivf, ivfpq, vamana
+           and pq at bench.py's full shapes (1M x 128, B=2048, 1024
+           recall queries, 2000 clusters, nprobe 8, R=48, L=80, beam 64)
+           on the sift phase's pool and graph, 3 windows of 4 batches
+           each: the JSON line of each (bench.py's four keys, unit qps,
+           a positive value), a profile of one batch, recall@10 (flat
+           1.000; ivf >= 0.95; vamana: the sift phase's ids, so its
+           recall against the sift oracle; ivfpq and pq at their first
+           card run less 0.02), B1 launched by vamana and B3
+           by pq, no other kernel by any; then the pool and the graph
+           written to the bench's artifact paths (where absent) and one
+           `python -m leann_tpu_torch.bench` subprocess with no
+           BENCH_BACKEND, which must pick vamana and print a line that
+           parses
   deep     BASELINE config 2 (DEEP, 96-d l2) cut to 1M: a corpus of 16-d
            latent clusters plus 0.05 ambient noise (1024 clusters, seed
            0), Vamana R=48 L=80 alpha 1.2 wave 8192, graph saved and
@@ -216,7 +231,9 @@ on stdout:
            pads a flush), sift build (1M, L=80, visited log 160), sift search
            (1M, B=2048), the recompute cases and `sharded search shard 0`
            (250k nodes, B=2048, L=64); pq_beam_search at deep search (1M,
-           B=2048, beam 64 and DEEP_BEAM) and `sharded pq search shard 0`; ivf_bucket_dots at the ivf phase's search
+           B=2048, beam 64 and DEEP_BEAM), `sharded pq search shard 0`
+           and `bench pq search L64` (the bench's pq engine: 1M x 128,
+           m=16, ksub=256, its probe batch of 2048); ivf_bucket_dots at the ivf phase's search
            (B=2048, nprobe 8) and ivf8_bucket_scores at the ivf8 phase's
            (B=512 and 2048, and a hot case: B=2048 with every query
            probing the 8 most-probed buckets); gather_score at the
@@ -232,7 +249,7 @@ on stdout:
            + torch.bmm in bf16, both inside the timed window
 
 The counts of kernel launches are set to 0 just before each main-path
-phase (rag, native, sift, deep, ivf, ivf8, gather, ivfpq, rag_ivf,
+phase (rag, native, sift, bench, deep, ivf, ivf8, gather, ivfpq, rag_ivf,
 encode, recompute, sharded, api, cli) and read just after it. Any failure exits
 non-zero with no `ok` line. The last lines are the kernel table, the
 card's `nvidia-smi` name and power limit, and {"ok": true, "device": ...}.
@@ -264,6 +281,13 @@ RAG_COMPLEXITY = 1024
 RAG_MIN_RECALL_64 = 0.66
 RAG_N = 20_000        # BASELINE config 0: a 20k-chunk 768-d corpus
 SIFT_N = 1_000_000    # bench.py / BASELINE config 1: SIFT-1M scale
+# the bench phase's windows: BENCH_M=4 batches a window, BENCH_REPS=3
+BENCH_ENV = {"BENCH_M": "4", "BENCH_REPS": "3"}
+# the first card run's recall@10 less 0.02 (PERF.md §2): ivfpq (the ADC
+# top-C at nprobe 8) and pq (the PQ kernel's bf16 score ties, ROADMAP
+# Queue C) at bench.py's 1M x 128
+BENCH_IVFPQ_MIN_RECALL = 0.853   # 0.8738 on the first card run
+BENCH_PQ_MIN_RECALL = 0.162      # 0.1829
 # BASELINE config 2 is DEEP-10M (96-d); cut to 1M for the build's time
 DEEP_N = 1_000_000
 # No beam of 96 / 128 / 192 / 256 cleared recall@10 0.95 on the deep
@@ -384,18 +408,11 @@ def make_lowdim(rng, rows, d, k, clusters, ambient=0.05):
     return np.ascontiguousarray(x, dtype=np.float32)
 
 
-def make_corpus(rng, n, d, clusters=1024, chunk=1 << 20):
-    """bench.py's mixture: `clusters` centers at 4x unit normal plus unit
-    noise. The noise is drawn in row chunks: the same stream as one draw,
-    without a float64 temporary of the whole corpus (7.7 GB at 10M x 96)."""
-    centers = rng.standard_normal((clusters, d)).astype(np.float32) * 4.0
-    assign = rng.integers(0, clusters, n)
-    out = np.empty((n, d), np.float32)
-    for s in range(0, n, chunk):
-        e = min(n, s + chunk)
-        out[s:e] = centers[assign[s:e]] + rng.standard_normal(
-            (e - s, d)).astype(np.float32)
-    return out
+def make_corpus(rng, n, d, clusters=1024):
+    """bench.py's mixture (`leann_tpu_torch/evals/corpus_cache.py`)."""
+    from leann_tpu_torch.evals.corpus_cache import make_corpus
+
+    return make_corpus(rng, n, d, clusters)
 
 
 def noisy_rows(corpus, shape, seed):
@@ -1451,8 +1468,128 @@ def phase_sift(torch, dev, n, counter):
     if build_launches <= 0 or search_launches <= 0:
         raise AssertionError("sift: the fused kernel was not launched")
     data = {"corpus": corpus, "queries": queries, "oracle": oracle,
-            "qps_mean": float(np.mean(qps))}
+            "qps_mean": float(np.mean(qps)), "pool": pool,
+            "graph": (graph.adjacency, graph.medoid), "recall10": rec,
+            "ids": idx}
     return eng, windows[0][0], build_l, data
+
+
+def bench_line_ok(line, backend):
+    """bench.py's four keys, unit qps, a positive value, the device rate
+    of `backend`."""
+    return (set(line) == {"metric", "value", "unit", "vs_baseline"}
+            and line["unit"] == "qps" and line["value"] > 0
+            and line["metric"].startswith(
+                f"{backend}_device_qps_per_chip@recall10="))
+
+
+def phase_bench(torch, dev, n, counter, sift):
+    """`python -m leann_tpu_torch.bench` at bench.py's full shapes: each
+    backend through `bench.run` on the sift phase's pool and graph, then
+    the program itself once in a subprocess, as users run it. Returns
+    the pq backend's engine and its probe batch (kernels_main's `bench pq
+    search L64`)."""
+    from leann_tpu_torch import bench
+    from leann_tpu_torch.evals import corpus_cache
+
+    cfg = bench.Config(n=n, m_batches=int(BENCH_ENV["BENCH_M"]),
+                       reps=int(BENCH_ENV["BENCH_REPS"]))
+    if (cfg.d, cfg.batch, cfg.recall_q, cfg.r, cfg.build_l, cfg.search_l,
+            cfg.n_clusters, cfg.n_probe) != (128, 2048, 1024, 48, 80, 64,
+                                             2000, 8):
+        raise AssertionError(f"bench: not bench.py's shapes: {cfg}")
+    rows, failures, pq = [], [], None
+    for backend in bench.BACKENDS:
+        t0 = time.perf_counter()
+        out = bench.run(backend, cfg, pool=sift["pool"], graph=sift["graph"],
+                        device=dev)
+        rec, launches = out["recall"], out["launches"]
+        row = {"backend": backend, "line": out["line"], "recall10": rec,
+               "qps": out["qps"], "qps_std": out["qps_std"],
+               "ms_per_batch": out["ms_per_batch"],
+               "build_s": out["build_s"], "launches": launches,
+               "wall_s": time.perf_counter() - t0,
+               "profile": profile(torch, lambda: out["call"](
+                   out["probe"][None]))}
+        want = {"vamana": (True, False), "pq": (False, True)}.get(
+            backend, (False, False))
+        if not bench_line_ok(out["line"], backend):
+            failures.append(f"{backend}: line {out['line']}")
+        if (launches[FUSED["name"]] > 0, launches[PQ["name"]] > 0) != want:
+            failures.append(f"{backend}: launches {launches}")
+        if backend == "vamana":
+            # the sift phase's engine on the same pool, graph and
+            # queries: the same ids, so the same recall against the sift
+            # phase's oracle (the full f32 scan; the bench's own is
+            # bench.py's two-stage oracle, which may rank a near tie at
+            # the 10th place otherwise)
+            vamana_line = out["line"]["metric"]
+            row["ids_equal_sift"] = bool(np.array_equal(out["ids"],
+                                                        sift["ids"]))
+            row["recall10_sift_oracle"] = recall_at(out["ids"],
+                                                    sift["oracle"])
+            row["oracle_overlap"] = recall_at(out["oracle"], sift["oracle"])
+            if not row["ids_equal_sift"] or \
+                    row["recall10_sift_oracle"] != sift["recall10"]:
+                failures.append(f"vamana: ids or recall@10 "
+                                f"{row['recall10_sift_oracle']} differ from "
+                                f"the sift phase's {sift['recall10']}")
+        limit = {"flat": 1.0, "ivf": IVF_MIN_RECALL,
+                 "ivfpq": BENCH_IVFPQ_MIN_RECALL,
+                 "pq": BENCH_PQ_MIN_RECALL}.get(backend)
+        if limit is not None and rec < limit:
+            failures.append(f"{backend}: recall@10 {rec} < {limit}")
+        if backend == "pq":
+            pq = (out["engine"], out["probe"])
+        rows.append(row)
+        del out
+
+    # as users run it: the graph and the pool at the bench's artifact
+    # paths (each written here only where absent, and removed after), no
+    # BENCH_BACKEND, the phase's windows
+    pool_path = corpus_cache.pool_path(n, cfg.d)
+    wrote = [p for p in (cfg.graph_path(), pool_path)
+             if not os.path.exists(p)]
+    try:
+        if cfg.graph_path() in wrote:
+            bench.save_graph(cfg.graph_path(), *sift["graph"])
+        if pool_path in wrote:
+            np.save(pool_path, sift["pool"])
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("BENCH_") and k != "LEANN_PQ_RESCORE"}
+        env.update(BENCH_ENV, LEANN_TORCH_DEVICE=str(dev))
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", "leann_tpu_torch.bench"],
+                           capture_output=True, text=True, env=env,
+                           timeout=300, cwd=os.path.dirname(
+                               os.path.abspath(__file__)))
+        sub = {"rc": p.returncode, "wall_s": time.perf_counter() - t0,
+               "stderr_tail": p.stderr.strip().splitlines()[-6:]}
+    finally:
+        for path in wrote:
+            if os.path.exists(path):
+                os.remove(path)
+    try:
+        sub["line"] = json.loads(p.stdout.strip().splitlines()[-1])
+    except (IndexError, ValueError):
+        sub["line"] = None
+    if p.returncode != 0 or not sub["line"] or not bench_line_ok(
+            sub["line"], "vamana"):
+        failures.append(f"subprocess: rc {p.returncode}, line {sub['line']}, "
+                        f"stderr {p.stderr[-2000:]}")
+    elif cfg.graph_path() in wrote:
+        # the sift graph and pool: the in-process vamana line's recall
+        sub["recall_equal"] = (sub["line"]["metric"].split(" ")[0]
+                               == vamana_line.split(" ")[0])
+        if not sub["recall_equal"]:
+            failures.append(f"subprocess: {sub['line']['metric']} vs "
+                            f"{vamana_line}")
+    emit({"phase": "bench", "n": n, "d": cfg.d, "batch": cfg.batch,
+          "env": BENCH_ENV, "card": smi(), "backends": rows,
+          "subprocess": sub, "failures": failures})
+    if failures:
+        raise AssertionError(f"bench: {failures}")
+    return pq
 
 
 def phase_deep(torch, dev, n, counter, beams=(64, DEEP_BEAM)):
@@ -3064,7 +3201,7 @@ def build_args(eng, q, ids, beam):
 
 
 def phase_kernels_main(torch, rag, sift, deep, ivf, ivf8, gather, recompute,
-                       sharded, cli):
+                       sharded, cli, bench):
     """Each kernel against its plain version at the shapes the main paths
     launched it with. The build cases take the builder's final-pass
     arguments (L = complexity, max_iters 2L+16, visited log 2L, medoid
@@ -3122,6 +3259,10 @@ def phase_kernels_main(torch, rag, sift, deep, ivf, ivf8, gather, recompute,
         deep_q, none(deep_q), beam), 5) for beam in (64, DEEP_BEAM)]
     pq_rows.append(check_case_pq(torch, "sharded pq search shard 0",
                                  sh_pq.kernel_args(sh_q, 64, shard=0), 5))
+    bench_pq, bench_q = bench
+    pq_rows.append(check_case_pq(torch, "bench pq search L64",
+                                 bench_pq.kernel_args(
+                                     bench_q, none(bench_q), 64), 5))
     emit({"phase": "kernels_main", "kernel": PQ["name"], "cases": pq_rows,
           "library_ms": None})
 
@@ -3198,9 +3339,11 @@ def main() -> int:
             return sum(wrappers[k].launches
                        for k in (names or kernels or wrappers))
 
+        t0 = time.perf_counter()
         out = phase(torch, dev, n, count, *extra)
         got = {k: w.launches for k, w in wrappers.items()}
-        emit({"phase": phase.__name__[len("phase_"):], "launches": got})
+        emit({"phase": phase.__name__[len("phase_"):], "launches": got,
+              "seconds": time.perf_counter() - t0})
         for k in kernels:
             if got[k] <= 0:
                 raise AssertionError(f"{phase.__name__}: {k} never launched")
@@ -3215,16 +3358,20 @@ def main() -> int:
     t_all = time.perf_counter()
     phase_env(torch)
     phase_build()
+    t0 = time.perf_counter()
     rows = phase_kernels(torch, dev)
     pq_grid = phase_kernels_pq(torch, dev)
     dots_grid, ivf8_grid = phase_kernels_ivf(torch, dev)
     gather_grid = phase_kernels_gather(torch, dev)
+    log(f"chip_smoke: kernel grids {time.perf_counter() - t0:.1f}s")
 
     rag_root = tempfile.mkdtemp(prefix="chip_smoke_rag_")
     try:
         rag = drive(phase_rag, [FUSED["name"]], RAG_N, rag_root)
         drive(phase_native, (), RAG_N, rag[4])
         *sift, sift_data = drive(phase_sift, [FUSED["name"]], SIFT_N)
+        bench = drive(phase_bench, [FUSED["name"], PQ["name"]], SIFT_N,
+                      sift_data)
         deep = drive(phase_deep, [PQ["name"]], DEEP_N)
         *ivf, ivf_data = drive(phase_ivf, [DOTS["name"]], IVF_N)
         *ivf8, ivf8_data = drive(phase_ivf8, [IVF8["name"]], IVF8_N)
@@ -3244,8 +3391,11 @@ def main() -> int:
     finally:
         shutil.rmtree(rag_root, ignore_errors=True)
     del sift_data
+    t0 = time.perf_counter()
     main_rows, pq_main, dots_main, ivf8_main, gather_main = phase_kernels_main(
-        torch, rag, sift, deep, ivf, ivf8, gather, recompute, sharded, cli)
+        torch, rag, sift, deep, ivf, ivf8, gather, recompute, sharded, cli,
+        bench)
+    log(f"chip_smoke: kernels_main {time.perf_counter() - t0:.1f}s")
 
     # the table rows: times at each kernel's serving shape (sift search,
     # 1M, B=2048; deep search, 1M, B=2048, beam DEEP_BEAM; ivf search,
