@@ -11,10 +11,11 @@ pruned recompute, BASELINE config 3 at 100k passages; sharded search
 over four shards of one card; the library surface, `Index` /
 `open_index`, RAG ask and the ReAct agent; the CLI, `python -m
 leann_tpu_torch`, and the HTTP and MCP servers; the native BM25 build
-behind every index build), builds the CUDA kernels from
-`leann_tpu_torch/csrc/` (one nvcc per source, all started together, and
-g++ on `csrc/leann_native.cpp` beside them), and holds each against its
-plain PyTorch version. Phases, one JSON line each
+behind every index build; hybrid and filtered search through the HTTP
+server over a flat index, BASELINE config 4 at 100k chunks), builds
+the CUDA kernels from `leann_tpu_torch/csrc/` (one nvcc per source, all
+started together, and g++ on `csrc/leann_native.cpp` beside them), and
+holds each against its plain PyTorch version. Phases, one JSON line each
 on stdout:
 
   env      torch / CUDA / nvcc versions, the card's name and power limit
@@ -195,7 +196,7 @@ on stdout:
            rag texts written one per file (fake 768-d, default backend
            hnsw -> vamana, B1 in its waves; seconds beside the rag
            phase's), `search --format json` top-10 at complexity 64 one
-           text per call on 64 texts against the CLI index (self-hit@1 on
+           text per call on 32 texts against the CLI index (self-hit@1 on
            the text's own file) and against the rag index by its
            directory (ids equal to `Index.search`'s), host ms p50 / p99;
            one `python -m leann_tpu_torch --device cuda:0 search`
@@ -206,8 +207,8 @@ on stdout:
            query) with `--llm simulated`; `update` with 200 new files (16
            return their own passage first), `reindex --backend-name ivf
            --rebuild-bm25` (16 of 16; build, update and reindex each
-           build BM25 once, natively), `prune -y` and 8 searches
-           through the recompute path (8 of 8), `list`, `remove -y`,
+           build BM25 once, natively), `prune -y` and 4 searches
+           through the recompute path (4 of 4), `list`, `remove -y`,
            `config path`; then
            `ServerState` over `IndexSearcher.load(rag, device)` with
            max_batch 64 and a 2 ms window, as `serve_cmd.run` builds it:
@@ -219,6 +220,21 @@ on stdout:
            /info /metrics; `McpServer(rag dir, device).handle` initialize,
            tools/list and a search (the passage first). B1 must launch,
            no other kernel
+  hybrid   BASELINE config 4 (`evals/hybrid_latency.py`) through
+           `leann_tpu_torch.evals.hybrid_latency` at 100,000 zipf-text
+           chunks (cut from 1M): first the flat engine's stage-1 product
+           on the card (`check_stage1`: bf16 operands into a float32
+           result, the path taken, its top-c ids against the fp32
+           product of the same operands on 20,000 x 128); then
+           `build_index` (flat ip, fake 128-d; seconds by step),
+           `IndexSearcher` (an ExactEngine on the card) and
+           `serve_windows` at windows 0 / 2 / 8 ms: 32 client threads,
+           a 1 s warm drive and a 3 s timed drive each (cut from 20 s),
+           the reference's rows and the flush counts; no error, every mix
+           served; 16 requests of each mix posted one at a time equal to
+           in-process `IndexSearcher.search`, every filtered hit's source
+           ends in .py, self-hit@1 on 64 passage texts. No kernel may
+           launch
   kernels_main
            each kernel vs its plain version at every shape the main
            paths launched it with: fused_beam_search at rag build (D=768,
@@ -250,7 +266,7 @@ on stdout:
 
 The counts of kernel launches are set to 0 just before each main-path
 phase (rag, native, sift, bench, deep, ivf, ivf8, gather, ivfpq, rag_ivf,
-encode, recompute, sharded, api, cli) and read just after it. Any failure exits
+encode, recompute, sharded, api, cli, hybrid) and read just after it. Any failure exits
 non-zero with no `ok` line. The last lines are the kernel table, the
 card's `nvidia-smi` name and power limit, and {"ok": true, "device": ...}.
 """
@@ -467,19 +483,23 @@ def cuda_ms(fn, reps):
 GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
 
 
-def profile(torch, fn, top=6):
+def profile(torch, fn, top=6, cpu=True):
     """Device time of one fn() by torch.profiler: busy ms (the sum of
     the kernels' own device time), wall ms of the profiled call ending in
     a synchronize (profiling adds host overhead, so the idle share is an
     upper bound), the matrix products' ms (`GEMM_NAMES`) and the `top`
-    kernels by device ms."""
+    kernels by device ms. `cpu=False` records the device's activity
+    alone: for a call of ~10^5 host ops, summing the host events takes
+    tens of seconds and none of them is read here."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if cpu:
+        activities.append(ProfilerActivity.CPU)
+    with torch_profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -2346,7 +2366,7 @@ def phase_recompute(torch, dev, n, counter):
         enc_ms, search_ms, forwards = encoder_split(
             torch, engine, queries, RECOMPUTE_BEAMS[0])
         prof = profile(torch, lambda: engine.search(
-            queries, k=10, beam_width=RECOMPUTE_BEAMS[0]), top=8)
+            queries, k=10, beam_width=RECOMPUTE_BEAMS[0]), top=8, cpu=False)
 
         # brute force under a one-facet filter; the query is a kept
         # passage's own stored vector
@@ -2778,7 +2798,8 @@ def phase_api(torch, dev, n_docs, counter, base, q, pick, rag_row):
     return row
 
 
-CLI_SEARCHES = 64      # texts per `search` pass (CLI index, rag index)
+CLI_SEARCHES = 32      # texts per `search` pass (CLI index, rag index)
+CLI_PRUNED_SEARCHES = 4  # searches through the recompute path after prune
 CLI_UPDATE_FILES = 200
 CLI_HTTP_REQUESTS = 256
 CLI_HTTP_CLIENTS = 32
@@ -3058,13 +3079,13 @@ def phase_cli(torch, dev, n_docs, counter, rag_base, pick, rag_row):
         row["prune_out"] = cli_ok(["prune", "cli", "-y"]).strip()
         wall = []
         got = 0
-        for i in sel[:8]:
+        for i in sel[:CLI_PRUNED_SEARCHES]:
             ids, ms = cli_search(dev, texts[i], "cli")
             got += ids[:1] == [f"docs/p{i}.txt#0"]
             wall.append(ms)
         row["pruned_self_hit"], row["pruned_ms_mean"] = got, float(
             np.mean(wall))
-        if got != 8:
+        if got != CLI_PRUNED_SEARCHES:
             bad.append("prune")
         lap("prune")
         listed = cli_ok(["list"])
@@ -3186,6 +3207,198 @@ def phase_cli(torch, dev, n_docs, counter, rag_base, pick, rag_row):
           "launches_by_step": launches})
     if bad:
         raise AssertionError(f"cli: {bad} failed their gates")
+    return row
+
+
+# BASELINE config 4 (`evals/hybrid_latency.py:175-183`) cut from 1M
+# chunks to 100k and from 20 s drives to 3 s for the smoke's time; the
+# full size runs as `python -m leann_tpu_torch.evals.hybrid_latency`
+HYBRID_N = 100_000
+HYBRID_D = 128
+HYBRID_CLIENTS = 32
+HYBRID_WINDOWS = (0.0, 2.0, 8.0)
+HYBRID_WARM_S = 1.0
+HYBRID_DRIVE_S = 3.0
+HYBRID_CHECKS = 16       # requests of each mix posted again after the drives
+HYBRID_SELF_HITS = 64
+STAGE1_N = 20_000        # rows of the stage-1 product check
+STAGE1_C = 400           # its top-c: the searcher's 5 x 10 overfetch x 8
+STAGE1_TOL = 1e-3        # |dot| ~ 11 here; a bf16-rounded dot errs >= 0.03
+
+
+def check_stage1(torch, dev):
+    """The flat engine's stage-1 product on the card
+    (`ops/distance.py:stage1_dots`): bf16 operands into a float32 result
+    with no bf16 rounding of it, against the fp32 product of the same
+    bf16 operands (TF32 off) on a STAGE1_N x 128 gaussian corpus and 64
+    queries: dots within STAGE1_TOL, and each row's top-c id set equal
+    but for ids whose fp32 score lies within STAGE1_TOL of the row's c-th
+    (a tie at the cut). Returns the row, with the path taken."""
+    from leann_tpu_torch.ops import distance as dist
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("stage1: TF32 is on; the fp32 yardstick "
+                             "would not be fp32")
+    rng = np.random.default_rng(16)
+    xb = torch.from_numpy(rng.standard_normal(
+        (STAGE1_N, 128), dtype=np.float32)).to(dev).to(torch.bfloat16)
+    q = torch.from_numpy(rng.standard_normal((64, 128), dtype=np.float32)
+                         ).to(dev)
+    path = dist.stage1_path(dev)
+    dots = dist.stage1_dots(q, dist.stage1_operand(xb))
+    want = q.to(torch.bfloat16).float() @ xb.float().T
+    row = {"path": path, "dtype": str(dots.dtype).replace("torch.", ""),
+           "n": STAGE1_N, "queries": 64, "c": STAGE1_C}
+    row["max_abs_err"] = float((dots - want).abs().max())
+    row["bf16_exact_share"] = float(
+        (dots.to(torch.bfloat16).float() == dots).float().mean())
+    got_ids = torch.topk(dots, STAGE1_C, dim=1).indices.cpu().numpy()
+    want_top = torch.topk(want, STAGE1_C, dim=1)
+    cut = want_top.values[:, -1].cpu().numpy()
+    want_ids = want_top.indices.cpu().numpy()
+    want_np = want.cpu().numpy()
+    differ = ties = 0
+    for r in range(64):
+        diff = set(got_ids[r]) ^ set(want_ids[r])
+        if diff:
+            differ += 1
+            ties += all(abs(want_np[r, i] - cut[r]) <= STAGE1_TOL
+                        for i in diff)
+    row["rows_differing"], row["rows_tied_at_cut"] = differ, ties
+    emit({"stage1": row})
+    if not (dots.dtype == torch.float32
+            and row["max_abs_err"] <= STAGE1_TOL
+            and row["bf16_exact_share"] < 0.5 and differ == ties):
+        raise AssertionError(f"stage1: {row}")
+    return row
+
+
+def phase_hybrid(torch, dev, n, counter):
+    """BASELINE config 4 through `leann_tpu_torch.evals.hybrid_latency`
+    at HYBRID_N: first `check_stage1`; then `build_index` (the zipf texts,
+    flat ip, fake 128-d, seconds by step), `IndexSearcher` (its engine
+    must be an ExactEngine on the card) and `serve_windows` at windows 0
+    / 2 / 8 ms with 32 client threads, a 1 s warm drive and a 3 s timed
+    drive each (the rows, the flush counts). Gates: no error (a failed
+    request or a filtered reply with a hit outside `source$py`) and every
+    mix served in every window; HYBRID_CHECKS requests of each mix from
+    the drive's client 0 posted one at a time return the ids of
+    `IndexSearcher.search` called in process (scores within 1e-5), every
+    filtered hit's source ends in .py; self-hit@1 >= 0.99 on 64 passage
+    texts posted plain. No kernel may launch: the flat path is plain
+    PyTorch, as the reference's is XLA."""
+    import http.client
+    import threading
+
+    from leann_tpu_torch.embed import EmbeddingProvider
+    from leann_tpu_torch.evals import hybrid_latency as hl
+    from leann_tpu_torch.index import IndexSearcher
+    from leann_tpu_torch.ops.distance import ExactEngine
+    from leann_tpu_torch.server.http import ServerState, serve
+
+    t_phase = time.perf_counter()
+    row = {"n": n, "d": HYBRID_D, "clients": HYBRID_CLIENTS,
+           "stage1": check_stage1(torch, dev)}
+    bad = []
+    with tempfile.TemporaryDirectory() as tmp:
+        base = os.path.join(tmp, "hybrid", "documents.leann")
+        row["build_s"] = hl.build_index(base, n, HYBRID_D, device=dev)
+        if not row["build_s"]["bm25_native"]:
+            bad.append("native BM25 build")
+        t0 = time.perf_counter()
+        provider = EmbeddingProvider(mode="fake", dimensions=HYBRID_D)
+        searcher = IndexSearcher(base, device=dev)
+        searcher.search(provider.embed(["w00001 w00002"])[0])
+        row["load_s"] = time.perf_counter() - t0
+        eng = searcher.backend.engine
+        row["engine"] = f"{type(eng).__name__} on {eng.device}"
+        if not (isinstance(eng, ExactEngine) and eng.device.type == "cuda"):
+            bad.append("engine")
+        t0 = time.perf_counter()
+        rows, row["flush_stats"] = hl.serve_windows(
+            searcher, provider, HYBRID_WINDOWS, 0, HYBRID_CLIENTS,
+            HYBRID_DRIVE_S, n, dev, warm_s=HYBRID_WARM_S)
+        row["serve_s"] = time.perf_counter() - t0
+        for w in HYBRID_WINDOWS:
+            total = next(r for r in rows if r["window_ms"] == w
+                         and r["metric"] == "hybrid_latency_total")
+            mixes = {r["mix"] for r in rows if r["window_ms"] == w
+                     and r["metric"] == "hybrid_latency"}
+            if total["errors"] or mixes != set(hl.MIXES):
+                bad.append(f"window {w}: errors {total['errors']}, "
+                           f"mixes {sorted(mixes)}")
+
+        # served against in process, one request at a time
+        t0 = time.perf_counter()
+        state = ServerState(searcher, provider, None, "hybrid_bench",
+                            max_batch=64, batch_window_ms=2)
+        server = serve(state, port=0)
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        conn = http.client.HTTPConnection(
+            "127.0.0.1", server.server_address[1], timeout=60)
+
+        def post(body):
+            conn.request("POST", "/search", json.dumps(body),
+                         {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            data = resp.read()
+            if resp.status != 200:
+                raise AssertionError(f"hybrid: POST {body}: {data[:200]}")
+            return json.loads(data)["results"]
+
+        try:
+            count = dict.fromkeys(hl.MIXES, 0)
+            equal = err = 0
+            outside = 0
+            short = dict.fromkeys(hl.MIXES, 0)
+            for mix, body in hl.client_requests(0, 0):
+                if count[mix] == HYBRID_CHECKS:
+                    if min(count.values()) == HYBRID_CHECKS:
+                        break
+                    continue
+                count[mix] += 1
+                got = post(body)
+                want = searcher.search(provider.embed([body["query"]]),
+                                       hl.options_of(body))[0]
+                same = [h["id"] for h in got] == [h.id for h in want]
+                equal += same
+                if same and want:
+                    err = max(err, max(abs(h["score"] - w.score)
+                                       for h, w in zip(got, want)))
+                short[mix] += len(got) < 10
+                if mix == "hybrid_filter":
+                    outside += sum(not h["metadata"]["source"].endswith(
+                        ".py") for h in got)
+            row["served_equal"] = f"{equal}/{3 * HYBRID_CHECKS}"
+            row["served_max_score_err"] = err
+            row["filter_hits_outside"] = outside
+            row["short_replies"] = short
+            if equal != 3 * HYBRID_CHECKS or err > 1e-5:
+                bad.append("served vs in process")
+            if outside:
+                bad.append("filter")
+            texts = hl.make_texts(n)
+            pick = np.random.default_rng(4).choice(
+                n, HYBRID_SELF_HITS, replace=False)
+            hits = [post({"query": texts[i], "top_k": 10})[:1]
+                    for i in pick]
+            row["self_hit1"] = float(np.mean(
+                [bool(h) and h[0]["id"] == f"c{i}"
+                 for h, i in zip(hits, pick)]))
+            if row["self_hit1"] < 0.99:
+                bad.append("self-hit@1")
+        finally:
+            conn.close()
+            server.shutdown()
+            server.server_close()
+            state.batcher.close()
+        row["checks_s"] = time.perf_counter() - t0
+    if counter():
+        bad.append("a kernel launched")
+    row["phase_s"] = time.perf_counter() - t_phase
+    emit({"phase": "hybrid", **row})
+    if bad:
+        raise AssertionError(f"hybrid: {bad} failed their gates")
     return row
 
 
@@ -3388,6 +3601,7 @@ def main() -> int:
               rag[3])
         cli = drive(phase_cli, [FUSED["name"]], RAG_N, rag[4], rag[2],
                     rag[3])
+        drive(phase_hybrid, (), HYBRID_N)
     finally:
         shutil.rmtree(rag_root, ignore_errors=True)
     del sift_data

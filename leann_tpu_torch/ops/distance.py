@@ -14,6 +14,7 @@ lower index first, as `jax.lax.top_k` does.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -128,6 +129,46 @@ def make_bias(n: int, n_pad: int, metric: Metric,
     return bias
 
 
+@functools.lru_cache(maxsize=None)
+def _mm_has_out_dtype() -> bool:
+    """Whether this PyTorch's `torch.mm` takes `out_dtype` (a float32
+    result from bf16 operands on CUDA)."""
+    z = torch.zeros((1, 1), dtype=torch.bfloat16, device="cuda")
+    try:
+        torch.mm(z, z, out_dtype=torch.float32)
+    except (TypeError, RuntimeError):
+        return False
+    return True
+
+
+def stage1_path(device: torch.device) -> str:
+    """How `_two_stage` forms its float32 stage-1 dots on `device`:
+    "out_dtype" (a bf16 GEMM with a float32 output, CUDA) or "widened"
+    (both bf16 operands widened to float32 first)."""
+    if device.type == "cuda" and _mm_has_out_dtype():
+        return "out_dtype"
+    return "widened"
+
+
+def stage1_operand(vectors_bf16: torch.Tensor) -> torch.Tensor:
+    """The corpus side of the stage-1 product, [D, N_pad]: the bf16 rows
+    themselves where `stage1_path` is "out_dtype", else widened to
+    float32 once per search."""
+    if stage1_path(vectors_bf16.device) == "out_dtype":
+        return vectors_bf16.T
+    return vectors_bf16.float().T
+
+
+def stage1_dots(queries: torch.Tensor, vt: torch.Tensor) -> torch.Tensor:
+    """float32 [b, N_pad] dots of the bf16-rounded queries with the bf16
+    corpus (`vt` from `stage1_operand`): exact products of bf16 values,
+    float32 sums, no bf16 rounding of the result."""
+    qq = queries.to(torch.bfloat16)
+    if vt.dtype == torch.bfloat16:
+        return torch.mm(qq, vt, out_dtype=torch.float32)
+    return qq.float() @ vt
+
+
 def _two_stage(
     queries: torch.Tensor,       # [B, D] f32
     vectors_bf16: torch.Tensor,  # [N_pad, D] bf16
@@ -139,12 +180,16 @@ def _two_stage(
     qc: int = 256,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Query-chunked bf16 scan keeping the top c per query, then the
-    exact f32 rescore of those c. Returns (scores, ids)."""
+    exact f32 rescore of those c. Returns (scores, ids).
+
+    Stage 1 multiplies bf16 operands into a float32 result, as the
+    reference's `preferred_element_type=jnp.float32` does: a bf16
+    `torch.matmul` would round each dot to bf16 before the top-c."""
     scale = 2.0 if metric == "l2" else 1.0
+    vt = stage1_operand(vectors_bf16)
     cands = []
     for s in range(0, queries.shape[0], qc):
-        qq = queries[s : s + qc].to(torch.bfloat16)
-        dots = (qq @ vectors_bf16.T).float()
+        dots = stage1_dots(queries[s : s + qc], vt)
         sc = scale * dots + bias[None, :]
         cands.append(torch.topk(sc, c, dim=1).indices)
     cand = torch.cat(cands, dim=0)

@@ -54,6 +54,33 @@ def test_exact_engine_matches_reference(metric):
         np.testing.assert_allclose(ts, np.asarray(js), rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("entry", ["exact_topk", "engine"])
+@pytest.mark.parametrize("metric", ["l2", "ip", "cosine"])
+def test_two_stage_without_overfetch_matches_reference(metric, entry):
+    # rescore_factor=1 keeps only k stage-1 candidates, so each row's id
+    # set is stage 1's own top-k: a stage-1 dot rounded to bf16 (rather
+    # than bf16 operands multiplied into float32, as the reference does)
+    # changes the set on some rows
+    x, q = _data()
+    if entry == "exact_topk":
+        _, ji = jd.exact_topk(q, x, 10, metric=metric, chunk_size=1024,
+                              two_stage=True, rescore_factor=1)
+        _, ti = td.exact_topk(q, x, 10, metric=metric, chunk_size=1024,
+                              two_stage=True, rescore_factor=1, device="cpu")
+    else:
+        je = jd.ExactEngine(x, metric=metric, chunk_size=1024)
+        te = td.ExactEngine(x, metric=metric, chunk_size=1024, device="cpu")
+        ji, _ = je.search(q, k=10, rescore_factor=1)
+        ti, _ = te.search(q, k=10, rescore_factor=1)
+    ji = np.asarray(ji)
+    differ = [r for r in range(len(q)) if set(ti[r]) != set(ji[r])]
+    assert differ == []
+
+
+def test_stage1_path_on_the_cpu_is_widened():
+    assert td.stage1_path(torch.device("cpu")) == "widened"
+
+
 @pytest.mark.parametrize("metric", ["l2", "ip"])
 def test_make_bias_matches_reference(metric):
     x, _ = _data(n=100, seed=2)
