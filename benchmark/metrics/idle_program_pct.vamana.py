@@ -1,0 +1,10 @@
+"""Share of the profiled sub-window, %, in which no device operation ran
+while the run's thread was inside the program's span
+`fused_beam.search_many` (`benchmark/spans.py`); the rest of
+`idle_pct.vamana` is the caller's."""
+
+from benchmark import spans
+
+
+def read(ctx, log):
+    return spans.idle_program_pct(ctx, log, "fused_beam.search_many")

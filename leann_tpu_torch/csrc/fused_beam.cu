@@ -21,6 +21,9 @@
 //           entries past L die
 //   vlog    when VT > 0: vlog[it*E + t] = u_t (sentinel when inactive)
 //   stop    no unexpanded live entry, or max_iters
+//   counts  per query: the active hops, the hops merged by the bitonic
+//           network, and the nodes expanded (the sum of every hop's
+//           picks, the non-sentinel entries of a full visited log)
 //
 // Query groups. The TPU program runs qb queries together and merges all
 // of them while any is active: a query whose beam is fully expanded
@@ -103,6 +106,7 @@ struct Params {
   int32_t* vlog;           // [B, VT] or null
   int32_t* hops;           // [B] active hops per query
   int32_t* slow;           // [B] hops merged by the bitonic network
+  int32_t* expanded;       // [B] nodes expanded per query
   int B, D, R, S, L, E, P2, V, Vs, VT, max_iters, metric_l2, n_sentinel, qb;
   int T, tshift;           // table slots (a power of two), 32 - log2(T)
 };
@@ -293,6 +297,7 @@ fused_beam_kernel(const Params p) {
   int head = 0;  // ring[t][(head + j) % V] holds logical position j
   int hops = p.max_iters;
   int slow = 0;
+  int expanded = 0;
   const int t = tid >> 7, c = tid & (kLanes - 1);  // this thread's lane
   const bool has_lane = tid < E * kLanes && c < R;
   __syncthreads();
@@ -339,6 +344,7 @@ fused_beam_kernel(const Params p) {
       hops = it;
       break;
     }
+    expanded += ctl[2];
 
     // ---- 2. the records by cp.async (waited for after admission); each
     //         lane's meta into registers and its id into the table ----
@@ -535,6 +541,7 @@ fused_beam_kernel(const Params p) {
   if (tid == 0) {
     p.hops[b] = hops;
     p.slow[b] = slow;
+    p.expanded[b] = expanded;
   }
 }
 
@@ -616,9 +623,9 @@ extern "C" int leann_fused_beam_search(
     const float* q, const int8_t* blocks, const int32_t* meta,
     const int32_t* seed_ids, const float* seed_sc, const int32_t* exclude,
     int32_t* out_ids, float* out_sc, int32_t* vlog, int32_t* hops,
-    int32_t* slow, int B, int D, int R, int S, int L, int E, int P2, int V,
-    int VT, int max_iters, int metric_l2, int n_sentinel, int qb,
-    void* stream) {
+    int32_t* slow, int32_t* expanded, int B, int D, int R, int S, int L,
+    int E, int P2, int V, int VT, int max_iters, int metric_l2,
+    int n_sentinel, int qb, void* stream) {
   if (qb < 1 || E < 1 || E > 2 || R > kLanes) return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q;
@@ -632,6 +639,7 @@ extern "C" int leann_fused_beam_search(
   p.vlog = vlog;
   p.hops = hops;
   p.slow = slow;
+  p.expanded = expanded;
   p.B = B;
   p.D = D;
   p.R = R;

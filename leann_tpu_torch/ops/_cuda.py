@@ -35,7 +35,7 @@ _PTR, _I32 = ctypes.c_void_p, ctypes.c_int
 # also exports leann_cuda_error_string
 SIGNATURES = {
     "fused_beam": {
-        "leann_fused_beam_search": ([_PTR] * 11 + [_I32] * 13 + [_PTR], _I32),
+        "leann_fused_beam_search": ([_PTR] * 12 + [_I32] * 13 + [_PTR], _I32),
         "leann_fused_beam_smem_bytes": ([_I32] * 6, ctypes.c_size_t),
         "leann_fused_beam_ctas_per_sm": ([_I32] * 6, _I32),
     },
@@ -139,14 +139,35 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def count_launch(wrapper, path: str = None) -> None:
+def count_launch(wrapper, path: str = None, **totals) -> None:
     """Add one to `wrapper.launches` (and to `wrapper.paths[path]`, for a
     wrapper that chooses between two kernels) under a lock: the HTTP
-    server's flush pool launches kernels from two threads at once."""
+    server's flush pool launches kernels from two threads at once.
+    `totals` are added as `count_work` adds them."""
     with _COUNT_LOCK:
         wrapper.launches += 1
         if path is not None:
             wrapper.paths[path] += 1
+        _add(wrapper, totals)
+
+
+def count_work(wrapper, **totals) -> None:
+    """Add each of `totals` (an int, or a one-element device tensor) to
+    the wrapper's attribute of that name, under the launch counter's
+    lock. A tensor is added on the device, with no sync: the total
+    becomes a tensor on the device of its first tensor amount, read
+    (`int(...)`) only by whoever reads it."""
+    with _COUNT_LOCK:
+        _add(wrapper, totals)
+
+
+def _add(wrapper, totals) -> None:
+    for name, amount in totals.items():
+        total = getattr(wrapper, name)
+        device = getattr(total, "device", None)
+        if device is not None and getattr(amount, "device", device) != device:
+            amount = amount.to(device, non_blocking=True)
+        setattr(wrapper, name, total + amount)
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from leann_tpu_torch.device import DeviceLike, resolve_device
+from leann_tpu_torch.utils.trace import device_span
 
 Metric = str  # "ip" | "l2" | "cosine"
 
@@ -184,16 +185,22 @@ def _two_stage(
 
     Stage 1 multiplies bf16 operands into a float32 result, as the
     reference's `preferred_element_type=jnp.float32` does: a bf16
-    `torch.matmul` would round each dot to bf16 before the top-c."""
+    `torch.matmul` would round each dot to bf16 before the top-c.
+
+    Device spans: per query chunk `exact.stage1` (the product, scale and
+    bias) and `exact.select` (the top-c), then `exact.rescore`."""
     scale = 2.0 if metric == "l2" else 1.0
     vt = stage1_operand(vectors_bf16)
     cands = []
     for s in range(0, queries.shape[0], qc):
-        dots = stage1_dots(queries[s : s + qc], vt)
-        sc = scale * dots + bias[None, :]
-        cands.append(torch.topk(sc, c, dim=1).indices)
-    cand = torch.cat(cands, dim=0)
-    return _rescore_topk(queries, vectors, cand, k, metric)
+        with device_span("exact.stage1"):
+            dots = stage1_dots(queries[s : s + qc], vt)
+            sc = scale * dots + bias[None, :]
+        with device_span("exact.select"):
+            cands.append(torch.topk(sc, c, dim=1).indices)
+    with device_span("exact.rescore"):
+        cand = torch.cat(cands, dim=0)
+        return _rescore_topk(queries, vectors, cand, k, metric)
 
 
 class ExactEngine:
@@ -265,10 +272,11 @@ class ExactEngine:
         self, qs: torch.Tensor, k: int = 10, rescore_factor: int = 8
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """[M, B, D] device-resident query batches -> (ids [M, B, k],
-        scores [M, B, k])."""
-        outs = [self.search_device(q, k, rescore_factor) for q in qs]
-        return (torch.stack([o[0] for o in outs]),
-                torch.stack([o[1] for o in outs]))
+        scores [M, B, k]), in the device span `exact.search_many`."""
+        with device_span("exact.search_many"):
+            outs = [self.search_device(q, k, rescore_factor) for q in qs]
+            return (torch.stack([o[0] for o in outs]),
+                    torch.stack([o[1] for o in outs]))
 
 
 def exact_topk(

@@ -29,7 +29,9 @@ import numpy as np
 import torch
 
 from leann_tpu_torch.device import DeviceLike, resolve_device
+from leann_tpu_torch.ops import _cuda
 from leann_tpu_torch.ops.beam import _rescore, _seed_entries, draw_seed_ids
+from leann_tpu_torch.utils.trace import device_span, tracing
 
 NEG_INF = float("-inf")
 BIG = 2**30
@@ -279,7 +281,7 @@ def _sizes(l, e, ring_size, track_visited):
 def fused_beam_search_plain(
     queries, blocks_i8, meta_i32, seed_ids, seed_scores, exclude, r,
     beam_width, max_iters, metric, expansions=2, qb=16, ring_size=1024,
-    track_visited=0, merge_stats=False,
+    track_visited=0, merge_stats=False, expansion_counts=False,
 ):
     """Plain PyTorch version of the fused kernel, batched over queries,
     hop by hop as the Pallas kernel runs them. Queries run in groups of
@@ -289,8 +291,8 @@ def fused_beam_search_plain(
     network permutes entries of equal score. Every merge is the bitonic
     network; with `merge_stats` it also counts, per query, the active
     hops and those that the CUDA kernel merges with the network
-    (`_needs_network`). Same arguments and outputs as
-    `fused_beam_search`."""
+    (`_needs_network`); with `expansion_counts`, the nodes each query
+    expanded. Same arguments and outputs as `fused_beam_search`."""
     del r
     b, _ = queries.shape
     dev = queries.device
@@ -316,6 +318,7 @@ def fused_beam_search_plain(
     pad = p2 - l - c
     slow = torch.zeros((b,), dtype=torch.int32, device=dev)
     hops = torch.zeros((b,), dtype=torch.int32, device=dev)
+    expanded = torch.zeros((b,), dtype=torch.int32, device=dev)
 
     for it in range(max_iters):
         pos, active = _first_k_unexpanded(st_sc, st_exp, e)     # [B, E]
@@ -326,6 +329,7 @@ def fused_beam_search_plain(
         for t in range(e):
             hit |= (iota == pos[:, t : t + 1]) & active[:, t : t + 1]
         st_exp = st_exp | hit
+        expanded += active.sum(1, dtype=torch.int32)
         u = torch.where(active, torch.gather(st_id, 1, pos), n_sentinel)
         if vt:
             for t in range(e):
@@ -382,6 +386,8 @@ def fused_beam_search_plain(
         out = out + (vlog.to(torch.int32),)
     if merge_stats:
         out = out + (slow, hops)
+    if expansion_counts:
+        out = out + (expanded,)
     return out
 
 
@@ -434,6 +440,7 @@ def fused_beam_search(
     ring_size: int = 1024,
     track_visited: int = 0,
     merge_stats: bool = False,
+    expansion_counts: bool = False,
 ) -> Tuple[torch.Tensor, ...]:
     """Returns (beam_ids [B, L] int32 desc, beam_scores [B, L] f32),
     int8-scored; with track_visited > 0 also vlog_ids [B, VT] int32
@@ -441,7 +448,15 @@ def fused_beam_search(
     VT/E hops' expanded node ids, sentinel-padded; with merge_stats also
     (slow_merges [B] int32, hops [B] int32): each query's active hops and
     how many of them the kernel merged with the bitonic network because
-    scores tied (the others by rank, with the same result).
+    scores tied (the others by rank, with the same result); with
+    expansion_counts, last, expanded [B] int32: the nodes each query
+    expanded (the non-sentinel entries of a full visited log).
+
+    While tracing is on (`utils.trace.tracing`), each call adds its
+    expansions to the device-side int64 total
+    `fused_beam_search.expansions` and its rows to
+    `fused_beam_search.traced_queries`, under the launch counter's lock
+    and with no sync.
 
     Queries form groups of qb consecutive rows, as the reference's
     programs do (B need not be a multiple of qb: the last group is
@@ -450,15 +465,19 @@ def fused_beam_search(
     run `fused_beam_search_plain`."""
     _check_inputs(queries, blocks_i8, meta_i32, seed_ids, seed_scores,
                   exclude, r, beam_width, expansions, qb)
+    traced = tracing()
     if queries.device.type == "cpu":
-        return fused_beam_search_plain(
+        out = fused_beam_search_plain(
             queries, blocks_i8, meta_i32, seed_ids, seed_scores, exclude,
             r, beam_width, max_iters, metric, expansions, qb, ring_size,
-            track_visited, merge_stats)
+            track_visited, merge_stats, expansion_counts or traced)
+        if traced:
+            _cuda.count_work(fused_beam_search, **_traced(out[-1]))
+            if not expansion_counts:
+                out = out[:-1]
+        return out
     if queries.device.type != "cuda":
         raise ValueError(f"unsupported device {queries.device}")
-
-    from leann_tpu_torch.ops import _cuda
 
     lib = _cuda.load("fused_beam")
     b, d = queries.shape
@@ -475,23 +494,34 @@ def fused_beam_search(
     out_ids = torch.empty((b, l), dtype=torch.int32, device=dev)
     out_sc = torch.empty((b, l), dtype=torch.float32, device=dev)
     vlog = torch.empty((b, max(vt, 1)), dtype=torch.int32, device=dev)
-    hops = torch.empty((b,), dtype=torch.int32, device=dev)
-    slow = torch.empty((b,), dtype=torch.int32, device=dev)
+    hops, slow, expanded = torch.empty((3, b), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.leann_fused_beam_search(
             *(t.data_ptr() for t in ts), out_ids.data_ptr(),
             out_sc.data_ptr(), vlog.data_ptr() if vt else None,
-            hops.data_ptr(), slow.data_ptr(), b, d, r, s, l, e, p2, v, vt,
-            max_iters, int(metric == "l2"), blocks_i8.shape[0] - 1, qb,
-            stream)
+            hops.data_ptr(), slow.data_ptr(), expanded.data_ptr(), b, d, r,
+            s, l, e, p2, v, vt, max_iters, int(metric == "l2"),
+            blocks_i8.shape[0] - 1, qb, stream)
     _cuda.check(lib, err, "fused_beam_search")
-    _cuda.count_launch(fused_beam_search)
+    _cuda.count_launch(fused_beam_search,
+                       **(_traced(expanded) if traced else {}))
     out = (out_ids, out_sc, vlog) if vt else (out_ids, out_sc)
-    return out + (slow, hops) if merge_stats else out
+    if merge_stats:
+        out = out + (slow, hops)
+    return out + (expanded,) if expansion_counts else out
+
+
+def _traced(expanded: torch.Tensor) -> dict:
+    """What one traced call adds to the wrapper's totals: its expansions,
+    summed on the device, and its rows."""
+    return {"expansions": expanded.sum(dtype=torch.int64),
+            "traced_queries": expanded.shape[0]}
 
 
 fused_beam_search.launches = 0
+fused_beam_search.expansions = 0
+fused_beam_search.traced_queries = 0
 
 
 def ctas_per_sm(d: int, r: int, beam_width: int, expansions: int = 2,
@@ -499,8 +529,6 @@ def ctas_per_sm(d: int, r: int, beam_width: int, expansions: int = 2,
     """CTAs of the CUDA traversal kernel that fit on one SM at these
     sizes (its shared memory, registers and 256 threads), as the CUDA
     occupancy calculator gives them. Needs the card."""
-    from leann_tpu_torch.ops import _cuda
-
     lib = _cuda.load("fused_beam")
     _, p2, v, _ = _sizes(beam_width, expansions, ring_size, track_visited)
     n = lib.leann_fused_beam_ctas_per_sm(d, r, expansions, beam_width, p2,
@@ -642,10 +670,11 @@ class FusedBeamEngine:
         m, b, d = qs.shape
         if b % self.qb:
             raise ValueError(f"B={b} must be a multiple of qb={self.qb}")
-        exc = torch.full((b,), -1, dtype=torch.int32, device=self.device)
-        outs = [self._search(q, exc, beam_width, max_iters) for q in qs]
-        return (torch.stack([o[0][:, :k] for o in outs]),
-                torch.stack([o[1][:, :k] for o in outs]))
+        with device_span("fused_beam.search_many"):
+            exc = torch.full((b,), -1, dtype=torch.int32, device=self.device)
+            outs = [self._search(q, exc, beam_width, max_iters) for q in qs]
+            return (torch.stack([o[0][:, :k] for o in outs]),
+                    torch.stack([o[1][:, :k] for o in outs]))
 
     def kernel_args(self, queries, exclude, beam_width, max_iters=None):
         """The `fused_beam_search` arguments of one device batch: the
@@ -667,16 +696,21 @@ class FusedBeamEngine:
     def _search(self, queries, exclude, beam_width, max_iters):
         """Seed-select -> fused traversal -> exact f32 rescore of the
         beam plus the sort-deduped visited log (the reference's
-        `_fused_search_jit`)."""
-        outs = fused_beam_search(
-            **self.kernel_args(queries, exclude, beam_width, max_iters))
-        beam_ids = outs[0].to(torch.int64)
-        if self.visited_pool:
-            cand = _dedup_candidates(beam_ids, outs[2].to(torch.int64),
-                                     self.n)
-        else:
-            cand = beam_ids
+        `_fused_search_jit`), each phase in a device span of its own."""
+        with device_span("fused_beam.seeds"):
+            kw = self.kernel_args(queries, exclude, beam_width, max_iters)
+        with device_span("fused_beam.b1"):
+            outs = fused_beam_search(**kw)
+        with device_span("fused_beam.dedup"):
+            beam_ids = outs[0].to(torch.int64)
+            if self.visited_pool:
+                cand = _dedup_candidates(beam_ids, outs[2].to(torch.int64),
+                                         self.n)
+            else:
+                cand = beam_ids
         # excluded ids can enter through the seed pool: the rescore
         # drops them
-        return _rescore(queries, self.vectors, self.sq_norms, cand, self.n,
-                        self.metric, beam_ids.shape[1], exclude=exclude)
+        with device_span("fused_beam.rescore"):
+            return _rescore(queries, self.vectors, self.sq_norms, cand,
+                            self.n, self.metric, beam_ids.shape[1],
+                            exclude=exclude)

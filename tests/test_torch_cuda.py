@@ -9,7 +9,8 @@ sum in the kernels' order, so ids, scores and visited logs are equal.
 B1 merges a hop by rank where the live scores are distinct and with the
 bitonic network where they tie; `merge_stats=True` returns per query the
 hops that took the network ("slow merges") and the active hops, and the
-plain version counts them alike, so the counts are held equal too. The B1
+plain version counts them alike, so the counts are held equal too, as
+are the nodes each query expanded (`expansion_counts=True`). The B1
 cases of the smoke alone, on a card: `python -c "import torch,
 chip_smoke; chip_smoke.phase_kernels(torch, torch.device('cuda'))"`.
 The bucket kernels (B2, B4): -inf positions equal exactly, finite scores
@@ -139,6 +140,47 @@ def test_kernel_minimum_ring(dev, graph, expansions):
             st, q, medoid, adj, beam_width=beam, max_iters=150,
             expansions=expansions, ring_size=1, track_visited=128))
         assert int(hops.min()) > p2 // 128
+
+
+@pytest.mark.parametrize("metric,expansions", [("l2", 2), ("ip", 1)])
+def test_kernel_counts_expansions(dev, graph, metric, expansions):
+    """Each query's expansion count from the kernel equals the plain
+    version's and the non-sentinel entries of a full visited log; the
+    wrapper's totals grow by the call's count and rows under a profiler,
+    and not outside it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x, adj, medoid = graph
+    st = tf.state_from_reference(x, adj, medoid, device=dev)
+    rng = np.random.default_rng(13)
+    q = torch.from_numpy(x[rng.integers(0, len(x), 96)] + np.float32(0.1)).to(dev)
+    kw = medoid_args(st, q, medoid, adj, beam_width=64, max_iters=150,
+                     expansions=expansions, ring_size=1024)
+    kw["metric"] = metric
+    kw["track_visited"] = kw["max_iters"] * expansions
+    got = tf.fused_beam_search(**kw, expansion_counts=True)
+    ref = tf.fused_beam_search_plain(**kw, expansion_counts=True)
+    for a, r in zip(got, ref):
+        assert torch.equal(a, r)
+    logged = (got[2] != len(x)).sum(1).to(torch.int32)
+    assert torch.equal(got[-1], logged) and bool((logged > 0).all())
+
+    search = tf.fused_beam_search
+    saved = search.expansions, search.traced_queries
+    search.expansions, search.traced_queries = 0, 0
+    try:
+        kw["track_visited"] = 0
+        tf.fused_beam_search(**kw)
+        assert search.expansions == 0 and search.traced_queries == 0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]):
+            out = tf.fused_beam_search(**kw)
+        assert len(out) == 2
+        assert search.expansions.device == q.device
+        assert int(search.expansions) == int(logged.sum())
+        assert search.traced_queries == q.shape[0]
+    finally:
+        search.expansions, search.traced_queries = saved
 
 
 @pytest.fixture(scope="module")
