@@ -80,7 +80,9 @@ on stdout:
            1.000; ivf >= 0.95; vamana: the sift phase's ids, so its
            recall against the sift oracle; ivfpq and pq at their first
            card run less 0.02), B1 launched by vamana and B3
-           by pq, no other kernel by any; then the pool and the graph
+           by pq, flat_topk by every backend's two-stage oracle and by
+           flat (never its PyTorch path), no other kernel by any; then
+           the pool and the graph
            written to the bench's artifact paths (where absent) and one
            `python -m leann_tpu_torch.bench` subprocess with no
            BENCH_BACKEND, which must pick vamana and print a line that
@@ -233,8 +235,10 @@ on stdout:
            the reference's rows and the flush counts; no error, every mix
            served; 16 requests of each mix posted one at a time equal to
            in-process `IndexSearcher.search`, every filtered hit's source
-           ends in .py, self-hit@1 on 64 passage texts. No kernel may
-           launch
+           ends in .py, self-hit@1 on 64 passage texts. The flat path
+           launches flat_topk (the stage-1 top-c) and no other kernel,
+           and no flat_topk call takes its PyTorch path; the drive's
+           flat_topk calls counted by (rows, c)
   kernels_main
            each kernel vs its plain version at every shape the main
            paths launched it with: fused_beam_search at rag build (D=768,
@@ -259,6 +263,14 @@ on stdout:
            designs by the graph timer, the kernel's own time by
            torch.profiler, both queued windows traced into kernel time
            and idle gap per call, the SM and memory clocks around them);
+           flat_topk at the flat benchmark cell's query chunk (256 x
+           1,048,576 stage-1 dots of the sift corpus, l2, c = 80) and at
+           the hybrid phase's serving flushes (the drive's own operands,
+           ip over 131,072 columns, at its most frequent call of more
+           than one row and its most frequent one-row call), each held
+           to `topk_stable`'s ids
+           exactly, beside the PyTorch path (scale, bias, torch.topk)
+           and its admitted keys a row;
            each timed beside
            its bound, the bucket kernels also beside torch.bmm over
            buckets gathered beforehand, gather_score beside `corpus[ids]`
@@ -400,6 +412,12 @@ GATHER = dict(
     route="cuda",
     source="leann_tpu_torch/csrc/gather_score.cu",
     replaces="leann_tpu/ops/gather_score.py:48",
+)
+FLAT = dict(
+    name="flat_topk",
+    route="cuda",
+    source="leann_tpu_torch/csrc/flat_topk.cu",
+    replaces="none (jax.lax.approx_max_k in leann_tpu/ops/distance.py:244)",
 )
 
 
@@ -1021,6 +1039,61 @@ def check_case_gather(torch, label, corpus, ids, q, library=False):
     return out
 
 
+FLAT_C = 80        # the flat benchmark cell's top-c: k = 10, rescore x 8
+FLAT_CHUNK = 256   # ExactEngine's query chunk (`_two_stage`'s qc)
+
+
+def check_case_flat(torch, label, dots, bias, scale, c, reps=10):
+    """flat_topk vs `topk_stable(scale * dots + bias, c)` on the card:
+    the ids equal exactly, in order. Times by CUDA events over `reps`
+    calls, the kernel and the PyTorch path (`library_ms`: scale, bias,
+    torch.topk, the select before the kernel) in turns (torch, kernel,
+    kernel, torch), beside the plain `topk_stable` (a full stable sort)
+    and the bound:
+    the dots read once at H100_BYTES_PER_S. Also the keys the threshold
+    filter admitted a row, from one call while a profiler session
+    records. Raises on disagreement."""
+    from leann_tpu_torch.ops.distance import topk_stable
+    from leann_tpu_torch.ops.flat_topk import flat_topk, launch_plan
+
+    rows, n = dots.shape
+    got = flat_topk(dots, bias, scale, c)
+    want = topk_stable(scale * dots + bias[None, :], c)[1]
+    differ = int((got != want).any(dim=1).sum())
+    turns = {"kernel": [], "torch": []}
+    for which in ("torch", "kernel", "kernel", "torch"):
+        fn = (lambda: flat_topk(dots, bias, scale, c)) if which == "kernel" \
+            else (lambda: torch.topk(scale * dots + bias[None, :], c,
+                                     dim=1).indices)
+        turns[which].append(cuda_ms(fn, reps)[0])
+    plain_ms = cuda_ms(lambda: topk_stable(scale * dots + bias[None, :], c),
+                       3)[0]
+    flat_topk.admitted = flat_topk.traced_rows = 0
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    with torch_profile(activities=[ProfilerActivity.CPU]):
+        flat_topk(dots, bias, scale, c)
+        torch.cuda.synchronize()
+    admitted = int(flat_topk.admitted) / max(1, flat_topk.traced_rows)
+    bound_ms = rows * n * 4 / H100_BYTES_PER_S * 1e3
+    out = {"case": label, "rows": rows, "n": n, "c": c, "scale": scale,
+           "rows_differing": differ, "max_abs_err": float(differ),
+           "ms": float(np.mean(turns["kernel"])), "ms_turns": turns["kernel"],
+           "library_ms": float(np.mean(turns["torch"])),
+           "library_turns": turns["torch"], "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": "bytes",
+           "roofline_pct": 100 * bound_ms / float(np.mean(turns["kernel"])),
+           "admitted_per_row": admitted,
+           "admitted_share": admitted / n,
+           "plan": launch_plan(rows, n, c, torch.cuda.get_device_properties(
+               dots.device).multi_processor_count)}
+    if differ:
+        raise AssertionError(f"flat_topk disagrees with topk_stable: "
+                             f"{json.dumps(out)}")
+    return out
+
+
 # ------------------------------------------------------------------ phases
 
 
@@ -1049,8 +1122,8 @@ def phase_build():
     from leann_tpu_torch.ops import _cuda
 
     libs = ("fused_beam", "pq_beam", "ivf_bucket_dots", "ivf8_scan",
-            "gather_score", "pq_beam_scan", "ivf_bucket_dots_pairs",
-            "ivf8_scan_pairs", "gather_score_rowwise")
+            "gather_score", "flat_topk", "pq_beam_scan",
+            "ivf_bucket_dots_pairs", "ivf8_scan_pairs", "gather_score_rowwise")
     gpp = {}
 
     def build_native():
@@ -1067,7 +1140,8 @@ def phase_build():
     thread.join()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "native_s": gpp["s"], "native_lib": native._compiled_lib_path(),
-          "sources": [k["source"] for k in (FUSED, PQ, DOTS, IVF8, GATHER)]
+          "sources": [k["source"]
+                      for k in (FUSED, PQ, DOTS, IVF8, GATHER, FLAT)]
           + ["leann_tpu_torch/csrc/leann_native.cpp"]})
     if gpp["lib"] is None:
         raise AssertionError("build: g++ could not build the native BM25 "
@@ -1506,12 +1580,14 @@ def bench_line_ok(line, backend):
 def phase_bench(torch, dev, n, counter, sift):
     """`python -m leann_tpu_torch.bench` at bench.py's full shapes: each
     backend through `bench.run` on the sift phase's pool and graph, then
-    the program itself once in a subprocess, as users run it. Returns
-    the pq backend's engine and its probe batch (kernels_main's `bench pq
-    search L64`)."""
+    the program itself once in a subprocess, as users run it. No call of
+    flat_topk may take its PyTorch path. Returns the pq backend's engine
+    and its probe batch (kernels_main's `bench pq search L64`)."""
     from leann_tpu_torch import bench
     from leann_tpu_torch.evals import corpus_cache
+    from leann_tpu_torch.ops.flat_topk import flat_topk
 
+    torch_calls = flat_topk.paths["torch"]
     cfg = bench.Config(n=n, m_batches=int(BENCH_ENV["BENCH_M"]),
                        reps=int(BENCH_ENV["BENCH_REPS"]))
     if (cfg.d, cfg.batch, cfg.recall_q, cfg.r, cfg.build_l, cfg.search_l,
@@ -1563,6 +1639,8 @@ def phase_bench(torch, dev, n, counter, sift):
             pq = (out["engine"], out["probe"])
         rows.append(row)
         del out
+    if flat_topk.paths["torch"] != torch_calls:
+        failures.append("flat_topk took its PyTorch path on the card")
 
     # as users run it: the graph and the pool at the bench's artifact
     # paths (each written here only where absent, and removed after), no
@@ -3285,18 +3363,26 @@ def phase_hybrid(torch, dev, n, counter):
     the drive's client 0 posted one at a time return the ids of
     `IndexSearcher.search` called in process (scores within 1e-5), every
     filtered hit's source ends in .py; self-hit@1 >= 0.99 on 64 passage
-    texts posted plain. No kernel may launch: the flat path is plain
-    PyTorch, as the reference's is XLA."""
+    texts posted plain. The flat path launches flat_topk, its stage-1
+    top-c: no call may take its PyTorch path, and `drive` holds the phase
+    to no other kernel. Returns (the row, the flat_topk operands of the
+    drive's most frequent call of more than one row and of its most
+    frequent one-row call, as (label, dots, bias, scale, c):
+    kernels_main's `hybrid flush` cases)."""
     import http.client
     import threading
+    from collections import Counter
 
     from leann_tpu_torch.embed import EmbeddingProvider
     from leann_tpu_torch.evals import hybrid_latency as hl
     from leann_tpu_torch.index import IndexSearcher
+    from leann_tpu_torch.ops import distance as dist
     from leann_tpu_torch.ops.distance import ExactEngine
+    from leann_tpu_torch.ops.flat_topk import flat_topk
     from leann_tpu_torch.server.http import ServerState, serve
 
     t_phase = time.perf_counter()
+    paths = dict(flat_topk.paths)
     row = {"n": n, "d": HYBRID_D, "clients": HYBRID_CLIENTS,
            "stage1": check_stage1(torch, dev)}
     bad = []
@@ -3314,11 +3400,35 @@ def phase_hybrid(torch, dev, n, counter):
         row["engine"] = f"{type(eng).__name__} on {eng.device}"
         if not (isinstance(eng, ExactEngine) and eng.device.type == "cuda"):
             bad.append("engine")
+        # the drive's flat_topk calls by (rows, c), and the first
+        # operands of each shape, held by kernels_main to topk_stable
+        calls, operands, lock = Counter(), {}, threading.Lock()
+
+        def recording(dots, bias, scale, c, out=None):
+            with lock:
+                calls[dots.shape[0], c] += 1
+                if (dots.shape[0], c) not in operands:
+                    operands[dots.shape[0], c] = (dots.clone(), bias, scale)
+            return flat_topk(dots, bias, scale, c, out=out)
+
         t0 = time.perf_counter()
-        rows, row["flush_stats"] = hl.serve_windows(
-            searcher, provider, HYBRID_WINDOWS, 0, HYBRID_CLIENTS,
-            HYBRID_DRIVE_S, n, dev, warm_s=HYBRID_WARM_S)
+        dist.flat_topk = recording
+        try:
+            rows, row["flush_stats"] = hl.serve_windows(
+                searcher, provider, HYBRID_WINDOWS, 0, HYBRID_CLIENTS,
+                HYBRID_DRIVE_S, n, dev, warm_s=HYBRID_WARM_S)
+        finally:
+            dist.flat_topk = flat_topk
         row["serve_s"] = time.perf_counter() - t0
+        row["flat_topk_calls"] = {f"{r}x{c}": k
+                                  for (r, c), k in calls.most_common()}
+        picks = [next((key for key, _ in calls.most_common()
+                       if (key[0] == 1) == one), None)
+                 for one in (False, True)]
+        flat_cases = [(f"hybrid flush {r} x {operands[r, c][0].shape[1]}"
+                       f" c{c}", *operands[r, c], c)
+                      for r, c in filter(None, picks)]
+        del operands
         for w in HYBRID_WINDOWS:
             total = next(r for r in rows if r["window_ms"] == w
                          and r["metric"] == "hybrid_latency_total")
@@ -3393,13 +3503,18 @@ def phase_hybrid(torch, dev, n, counter):
             server.server_close()
             state.batcher.close()
         row["checks_s"] = time.perf_counter() - t0
-    if counter():
-        bad.append("a kernel launched")
+    row["flat_topk_paths"] = {k: v - paths[k]
+                              for k, v in flat_topk.paths.items()}
+    if row["flat_topk_paths"]["torch"]:
+        bad.append("flat_topk took its PyTorch path on the card")
+    if len(flat_cases) < 2:
+        bad.append(f"flat_topk served no call of one row, or none of "
+                   f"more: {calls}")
     row["phase_s"] = time.perf_counter() - t_phase
     emit({"phase": "hybrid", **row})
     if bad:
         raise AssertionError(f"hybrid: {bad} failed their gates")
-    return row
+    return row, flat_cases
 
 
 def build_args(eng, q, ids, beam):
@@ -3414,7 +3529,7 @@ def build_args(eng, q, ids, beam):
 
 
 def phase_kernels_main(torch, rag, sift, deep, ivf, ivf8, gather, recompute,
-                       sharded, cli, bench):
+                       sharded, cli, bench, hybrid):
     """Each kernel against its plain version at the shapes the main paths
     launched it with. The build cases take the builder's final-pass
     arguments (L = complexity, max_iters 2L+16, visited log 2L, medoid
@@ -3515,7 +3630,29 @@ def phase_kernels_main(torch, rag, sift, deep, ivf, ivf8, gather, recompute,
     emit({"phase": "kernels_main", "kernel": GATHER["name"],
           "cases": gather_rows,
           "library_ms": gather_rows[-1]["library_ms"]})
-    return rows, pq_rows, dots_rows, ivf8_rows, gather_rows
+
+    # the flat benchmark cell's query chunk: ExactEngine's operands on the
+    # sift corpus (padded to 1,048,576 rows, l2) and 256 sift queries
+    from leann_tpu_torch.ops import distance as dist
+
+    n = sift_eng.vectors.shape[0]
+    n_pad = -(-n // 65536) * 65536
+    v = torch.cat([sift_eng.vectors.float(), sift_eng.vectors.new_zeros(
+        (n_pad - n, sift_eng.vectors.shape[1]))])
+    bias = dist.make_bias(n, n_pad, "l2", v)
+    dots = dist.stage1_dots(sift_q[:FLAT_CHUNK],
+                            dist.stage1_operand(v.to(torch.bfloat16)))
+    del v
+    flat_rows = [check_case_flat(torch, f"flat select {FLAT_CHUNK} x {n_pad}",
+                                 dots, bias, 2.0, FLAT_C)]
+    del dots
+    # the hybrid phase's serving flushes: the drive's own operands at its
+    # most frequent call of more than one row and its most frequent
+    # one-row call
+    flat_rows += [check_case_flat(torch, *case) for case in hybrid[1]]
+    emit({"phase": "kernels_main", "kernel": FLAT["name"],
+          "cases": flat_rows, "library_ms": flat_rows[-1]["library_ms"]})
+    return rows, pq_rows, dots_rows, ivf8_rows, gather_rows, flat_rows
 
 
 def main() -> int:
@@ -3529,12 +3666,13 @@ def main() -> int:
         ivf8_bucket_scores, ivf_bucket_dots,
     )
     from leann_tpu_torch.ops.fused_beam import fused_beam_search
+    from leann_tpu_torch.ops.flat_topk import flat_topk
     from leann_tpu_torch.ops.gather_score import gather_score
     from leann_tpu_torch.ops.pq_beam import pq_beam_search
 
     wrappers = {FUSED["name"]: fused_beam_search, PQ["name"]: pq_beam_search,
                 DOTS["name"]: ivf_bucket_dots, IVF8["name"]: ivf8_bucket_scores,
-                GATHER["name"]: gather_score}
+                GATHER["name"]: gather_score, FLAT["name"]: flat_topk}
     launches = dict.fromkeys(wrappers, 0)
 
     def drive(phase, kernels, n, *extra):
@@ -3583,8 +3721,8 @@ def main() -> int:
         rag = drive(phase_rag, [FUSED["name"]], RAG_N, rag_root)
         drive(phase_native, (), RAG_N, rag[4])
         *sift, sift_data = drive(phase_sift, [FUSED["name"]], SIFT_N)
-        bench = drive(phase_bench, [FUSED["name"], PQ["name"]], SIFT_N,
-                      sift_data)
+        bench = drive(phase_bench, [FUSED["name"], PQ["name"], FLAT["name"]],
+                      SIFT_N, sift_data)
         deep = drive(phase_deep, [PQ["name"]], DEEP_N)
         *ivf, ivf_data = drive(phase_ivf, [DOTS["name"]], IVF_N)
         *ivf8, ivf8_data = drive(phase_ivf8, [IVF8["name"]], IVF8_N)
@@ -3601,14 +3739,15 @@ def main() -> int:
               rag[3])
         cli = drive(phase_cli, [FUSED["name"]], RAG_N, rag[4], rag[2],
                     rag[3])
-        drive(phase_hybrid, (), HYBRID_N)
+        hybrid = drive(phase_hybrid, [FLAT["name"]], HYBRID_N)
     finally:
         shutil.rmtree(rag_root, ignore_errors=True)
     del sift_data
     t0 = time.perf_counter()
-    main_rows, pq_main, dots_main, ivf8_main, gather_main = phase_kernels_main(
+    (main_rows, pq_main, dots_main, ivf8_main, gather_main,
+     flat_main) = phase_kernels_main(
         torch, rag, sift, deep, ivf, ivf8, gather, recompute, sharded, cli,
-        bench)
+        bench, hybrid)
     log(f"chip_smoke: kernels_main {time.perf_counter() - t0:.1f}s")
 
     # the table rows: times at each kernel's serving shape (sift search,
@@ -3626,7 +3765,8 @@ def main() -> int:
             (IVF8, next(c for c in ivf8_main
                         if c["case"] == "ivf8 search B2048"),
              ivf8_grid + ivf8_main),
-            (GATHER, gather_main[-1], gather_grid + gather_main)):
+            (GATHER, gather_main[-1], gather_grid + gather_main),
+            (FLAT, flat_main[0], flat_main)):
         kernels.append({
             **info, "launches": launches[info["name"]],
             "max_abs_err": max(c["max_abs_err"] for c in all_rows),

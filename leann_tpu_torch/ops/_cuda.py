@@ -73,6 +73,12 @@ SIGNATURES = {
         "leann_gather_score": (
             [_PTR] * 4 + [ctypes.c_longlong] + [_I32] * 5 + [_PTR], _I32),
     },
+    "flat_topk": {
+        "leann_flat_topk": ([_PTR] * 2 + [ctypes.c_float] + [_I32] * 6
+                            + [_PTR] * 2 + [_I32] + [_PTR]
+                            + [ctypes.c_longlong] + [_PTR] * 2, _I32),
+        "leann_flat_topk_smem": ([_PTR] * 2, _I32),
+    },
 }
 
 
@@ -149,6 +155,14 @@ def count_launch(wrapper, path: str = None, **totals) -> None:
         if path is not None:
             wrapper.paths[path] += 1
         _add(wrapper, totals)
+
+
+def count_path(wrapper, path: str) -> None:
+    """Add one to `wrapper.paths[path]` alone, under the launch counter's
+    lock: a call that took a path with no kernel, which `launches` leaves
+    out."""
+    with _COUNT_LOCK:
+        wrapper.paths[path] += 1
 
 
 def count_work(wrapper, **totals) -> None:

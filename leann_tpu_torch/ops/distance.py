@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from leann_tpu_torch.device import DeviceLike, resolve_device
+from leann_tpu_torch.ops.flat_topk import flat_topk
 from leann_tpu_torch.utils.trace import device_span
 
 Metric = str  # "ip" | "l2" | "cosine"
@@ -185,21 +186,25 @@ def _two_stage(
 
     Stage 1 multiplies bf16 operands into a float32 result, as the
     reference's `preferred_element_type=jnp.float32` does: a bf16
-    `torch.matmul` would round each dot to bf16 before the top-c.
+    `torch.matmul` would round each dot to bf16 before the top-c. The
+    top-c of `scale * dots + bias` is `flat_topk`'s, written straight
+    into the candidate rows: on the card its kernel applies the scale
+    and the bias as it reads the dots once; on the CPU it is
+    `torch.topk` of the scores.
 
-    Device spans: per query chunk `exact.stage1` (the product, scale and
-    bias) and `exact.select` (the top-c), then `exact.rescore`."""
+    Device spans: per query chunk `exact.stage1` (the product) and
+    `exact.select` (`flat_topk`: the scale, the bias and the top-c), then
+    `exact.rescore`."""
     scale = 2.0 if metric == "l2" else 1.0
     vt = stage1_operand(vectors_bf16)
-    cands = []
+    cand = torch.empty((queries.shape[0], c), dtype=torch.int64,
+                       device=queries.device)
     for s in range(0, queries.shape[0], qc):
         with device_span("exact.stage1"):
             dots = stage1_dots(queries[s : s + qc], vt)
-            sc = scale * dots + bias[None, :]
         with device_span("exact.select"):
-            cands.append(torch.topk(sc, c, dim=1).indices)
+            flat_topk(dots, bias, scale, c, out=cand[s : s + qc])
     with device_span("exact.rescore"):
-        cand = torch.cat(cands, dim=0)
         return _rescore_topk(queries, vectors, cand, k, metric)
 
 
