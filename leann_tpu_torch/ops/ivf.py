@@ -30,9 +30,11 @@ import numpy as np
 import torch
 
 from leann_tpu_torch.device import DeviceLike, resolve_device
+from leann_tpu_torch.ops import _cuda
 from leann_tpu_torch.ops.distance import (
     NEG_INF, _rescore_topk, pairwise_scores, topk_stable,
 )
+from leann_tpu_torch.utils.trace import device_span, tracing
 
 
 # ---------------------------------------------------------------- k-means
@@ -226,6 +228,7 @@ class IvfEngine:
         self.bucket_sq = torch.from_numpy(
             (bucket_vecs * bucket_vecs).sum(axis=2)).to(dev)
         del bucket_vecs
+        self.bucket_live = (self.bucket_ids != self.n).sum(1)   # [K']
         self._corpus_dev = torch.from_numpy(vectors).to(dev)
 
     def search_pallas(
@@ -283,9 +286,11 @@ class IvfEngine:
         _, cand = ivf_search(
             q, self.bucket_cent, self.bucket_ids, self.bucket_vecs_bf16,
             self.bucket_sq, k=c, nprobe=nprobe, metric=self.metric,
-            sentinel=self.n,
+            sentinel=self.n, bucket_live=self.bucket_live,
         )
-        scores, ids = _rescore_topk(q, self._corpus_dev, cand, k, self.metric)
+        with device_span("ivf.rescore"):
+            scores, ids = _rescore_topk(q, self._corpus_dev, cand, k,
+                                        self.metric)
         return ids, scores
 
     def search_many_device(
@@ -294,11 +299,16 @@ class IvfEngine:
         """[M, B, D] device-resident query batches -> (ids, scores) each
         [M, B, k], one batch after another (the reference's lax.scan). The
         queries go in as they are, as in the reference: a cosine engine's
-        scores then carry |q|."""
-        outs = [self._search(q.to(torch.float32), k, nprobe, rescore_factor)
-                for q in qs]
-        return (torch.stack([o[0] for o in outs]),
-                torch.stack([o[1] for o in outs]))
+        scores then carry |q|.
+
+        Device spans: `ivf.search_many` around the call; per batch
+        `ivf_search`'s (`ivf.probe`, then `ivf.scan` and `ivf.merge` per
+        probe) and `ivf.rescore` (`_rescore_topk`)."""
+        with device_span("ivf.search_many"):
+            outs = [self._search(q.to(torch.float32), k, nprobe,
+                                 rescore_factor) for q in qs]
+            return (torch.stack([o[0] for o in outs]),
+                    torch.stack([o[1] for o in outs]))
 
     def calibrate_nprobe(
         self,
@@ -359,28 +369,49 @@ def calibrate_nprobe_ladder(
 def ivf_search(
     queries, centroids, bucket_ids, bucket_vecs, bucket_sq,
     k: int, nprobe: int, metric: str, sentinel: int,
+    bucket_live: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Stage-1 candidate generation: bf16 bucket scan (exact float32
     products of bf16 values, float32 sums) with a running top-k over the
     probes; callers rescore the survivors in f32 (IvfEngine.search).
-    Returns (scores [B, k], ids [B, k] int64, -1 for empty slots)."""
+    Returns (scores [B, k], ids [B, k] int64, -1 for empty slots).
+
+    Device spans: `ivf.probe` (the centroid scores and top-nprobe), then
+    per probe `ivf.scan` (the bucket gather, product, bias and sentinel
+    masks) and `ivf.merge` (the running top-k: `cat`, `topk_stable`,
+    `gather`). While tracing is on (`utils.trace.tracing`), a call given
+    `bucket_live` ([K'], each bucket's live, non-sentinel rows) adds the
+    live rows of its probed buckets, summed on the device, to
+    `ivf_search.rows` and its queries to `ivf_search.traced_queries`,
+    under `_cuda.count_work`'s lock and with no sync."""
     b = queries.shape[0]
     dev = queries.device
-    c_scores = pairwise_scores(queries, centroids, metric)
-    _, probe = topk_stable(c_scores, nprobe)                 # [B, P]
+    with device_span("ivf.probe"):
+        c_scores = pairwise_scores(queries, centroids, metric)
+        _, probe = topk_stable(c_scores, nprobe)             # [B, P]
+    if bucket_live is not None and tracing():
+        _cuda.count_work(ivf_search, rows=bucket_live[probe].sum(),
+                         traced_queries=b)
     q_score = queries.to(torch.bfloat16).float()
     best_scores = torch.full((b, k), NEG_INF, dtype=torch.float32, device=dev)
     best_ids = torch.full((b, k), -1, dtype=torch.int64, device=dev)
     for p in range(nprobe):
-        cluster = probe[:, p]                                # [B]
-        vecs = bucket_vecs[cluster].float()                  # [B, cap, D]
-        ids = bucket_ids[cluster].long()                     # [B, cap]
-        dots = torch.einsum("bcd,bd->bc", vecs, q_score)
-        scores = 2.0 * dots - bucket_sq[cluster] if metric == "l2" else dots
-        scores = torch.where(ids == sentinel, NEG_INF, scores)
-        safe_ids = torch.where(ids == sentinel, -1, ids)
-        all_scores = torch.cat([best_scores, scores], dim=1)
-        all_ids = torch.cat([best_ids, safe_ids], dim=1)
-        best_scores, pos = topk_stable(all_scores, k)
-        best_ids = torch.gather(all_ids, 1, pos)
+        with device_span("ivf.scan"):
+            cluster = probe[:, p]                            # [B]
+            vecs = bucket_vecs[cluster].float()              # [B, cap, D]
+            ids = bucket_ids[cluster].long()                 # [B, cap]
+            dots = torch.einsum("bcd,bd->bc", vecs, q_score)
+            scores = (2.0 * dots - bucket_sq[cluster] if metric == "l2"
+                      else dots)
+            scores = torch.where(ids == sentinel, NEG_INF, scores)
+            safe_ids = torch.where(ids == sentinel, -1, ids)
+        with device_span("ivf.merge"):
+            all_scores = torch.cat([best_scores, scores], dim=1)
+            all_ids = torch.cat([best_ids, safe_ids], dim=1)
+            best_scores, pos = topk_stable(all_scores, k)
+            best_ids = torch.gather(all_ids, 1, pos)
     return best_scores, best_ids
+
+
+ivf_search.rows = 0
+ivf_search.traced_queries = 0

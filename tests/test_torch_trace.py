@@ -246,3 +246,24 @@ def test_count_work_is_exact_under_threads():
         sys.setswitchinterval(old)
     assert Wrapper.launches == 16 * 300
     assert int(Wrapper.total) == 16 * 300 and Wrapper.rows == 2 * 16 * 300
+
+
+def test_ivf_engine_spans_nest_as_called(corpus, tmp_path):
+    from leann_tpu_torch.ops.ivf import IvfEngine
+
+    eng = IvfEngine(corpus, n_clusters=8, metric="l2", device="cpu")
+    qs = torch.from_numpy(corpus[:64].reshape(2, 32, D).copy())
+    with _session(all_threads=True) as prof:
+        ids, _ = eng.search_many_device(qs, k=5, nprobe=3)
+    assert ids.shape == (2, 32, 5)
+    ann = _annotations(prof, tmp_path)
+    outer = [a for a in ann if a[0] == "ivf.search_many"]
+    assert len(outer) == 1
+    names = ("ivf.probe", "ivf.scan", "ivf.merge", "ivf.rescore")
+    got = sorted((a for a in ann if a[0] in names), key=lambda a: a[1])
+    # per batch: the probe, a scan and a merge per probe, the rescore
+    one = ["ivf.probe"] + ["ivf.scan", "ivf.merge"] * 3 + ["ivf.rescore"]
+    assert [a[0] for a in got] == one * 2
+    assert all(_inside(a, outer[0]) for a in got)
+    for a, b in zip(got, got[1:]):
+        assert a[2] <= b[1]
