@@ -81,7 +81,8 @@ on stdout:
            recall against the sift oracle; ivfpq and pq at their first
            card run less 0.02), B1 launched by vamana and B3
            by pq, flat_topk by every backend's two-stage oracle and by
-           flat (never its PyTorch path), no other kernel by any; then
+           flat (never its PyTorch path), B4 and ivf_topc by ivf alone,
+           no other kernel by any; then
            the pool and the graph
            written to the bench's artifact paths (where absent) and one
            `python -m leann_tpu_torch.bench` subprocess with no
@@ -99,9 +100,12 @@ on stdout:
            breakdown of one batch at both beams
   ivf      BASELINE config 1 / bench.py's IVF config: the sift mixture
            at 1M x 128 l2, IvfEngine(n_clusters=2000), nprobe 8:
-           recall@10 on 1024 queries of `search` (torch scan) and
-           `search_pallas` (kernel ivf_bucket_dots), device QPS of both
-           at batch 2048 by CUDA events, a profile of one window each
+           recall@10 on 1024 queries of `search` (the main path:
+           `ivf_search` takes kernel B4, ivf_bucket_dots, then kernel
+           ivf_topc) and `search_pallas` (the same kernels, unchunked),
+           both launching both kernels and `search` counted once on
+           `ivf_search.paths["kernel"]`; device QPS of both at batch
+           2048 by CUDA events, a profile of one window each
   ivf8     BASELINE config 2 at its full scale: the same mixture at
            10M x 96 l2, k-means (two runs of its first iteration on a 1M
            slice must give the same bits), IvfInt8Engine(n_clusters=6324),
@@ -131,9 +135,8 @@ on stdout:
   rag_ivf  the rag phase's 20,000 passages built with backend "ivf" (ip)
            through StreamingIndexBuilder: the meta's calibrated nprobe,
            then IndexSearcher.search on 256 passage texts: self-hit@1 and
-           recall@10 against exact at that nprobe; no kernel may launch
-           (IvfSearcher serves the torch scan, as the reference's serves
-           XLA's)
+           recall@10 against exact at that nprobe; B4 and ivf_topc
+           launch (IvfSearcher's scan on the card), no other kernel
   encode   BertEncoder(BertConfig()) at the published bert-base widths
            (768 hidden, 12 layers, 12 heads, 3072, vocab 30522) with
            seeded random weights and the hash tokenizer: the rag phase's
@@ -175,7 +178,9 @@ on stdout:
            rag phase's index (one shard): the first load builds and
            writes `.shards.npz`, the second reuses it (no B1 launch, the
            same mtime) with ids and scores equal; self-hit@1; peak
-           memory. B1 and B3 must launch, no other kernel
+           memory. B1 and B3 must launch, and B4 and ivf_topc in
+           ShardedIvfIndex's search (its per-shard `ivf_search`), no
+           other kernel
   api      the library surface on the rag phase's index:
            open_index(dir, device) (the fake 768-d provider rebuilt from
            the meta; the first search's seconds apart), Index.search one
@@ -221,7 +226,7 @@ on stdout:
            `IndexSearcher.search` on the same 64 vectors), GET /health
            /info /metrics; `McpServer(rag dir, device).handle` initialize,
            tools/list and a search (the passage first). B1 must launch,
-           no other kernel
+           and B4 and ivf_topc (the reindexed ivf index), no other kernel
   hybrid   BASELINE config 4 (`evals/hybrid_latency.py`) through
            `leann_tpu_torch.evals.hybrid_latency` at 100,000 zipf-text
            chunks (cut from 1M): first the flat engine's stage-1 product
@@ -253,7 +258,8 @@ on stdout:
            (250k nodes, B=2048, L=64); pq_beam_search at deep search (1M,
            B=2048, beam 64 and DEEP_BEAM), `sharded pq search shard 0`
            and `bench pq search L64` (the bench's pq engine: 1M x 128,
-           m=16, ksub=256, its probe batch of 2048); ivf_bucket_dots at the ivf phase's search
+           m=16, ksub=256, its probe batch of 2048); ivf_bucket_dots at the
+           ivf phase's search
            (B=2048, nprobe 8) and ivf8_bucket_scores at the ivf8 phase's
            (B=512 and 2048, and a hot case: B=2048 with every query
            probing the 8 most-probed buckets); gather_score at the
@@ -270,7 +276,11 @@ on stdout:
            than one row and its most frequent one-row call), each held
            to `topk_stable`'s ids
            exactly, beside the PyTorch path (scale, bias, torch.topk)
-           and its admitted keys a row;
+           and its admitted keys a row; ivf_topc at the IVF benchmark
+           cell's batch (the ivf phase's engine and a batch of 2048, B4's
+           dots at nprobe 8, cap 650, C = 40), ids and score bits equal
+           to its plain version, beside the plain version's time and
+           `topk_stable` alone over the [2048, 5200] scores (`library_ms`);
            each timed beside
            its bound, the bucket kernels also beside torch.bmm over
            buckets gathered beforehand, gather_score beside `corpus[ids]`
@@ -418,6 +428,13 @@ FLAT = dict(
     route="cuda",
     source="leann_tpu_torch/csrc/flat_topk.cu",
     replaces="none (jax.lax.approx_max_k in leann_tpu/ops/distance.py:244)",
+)
+TOPC = dict(
+    name="ivf_topc",
+    route="cuda",
+    source="leann_tpu_torch/csrc/ivf_topc.cu",
+    replaces="none (jax.lax.top_k in leann_tpu/ops/pallas_kernels.py:299 "
+             "and leann_tpu/ops/ivf.py:457)",
 )
 
 
@@ -1094,6 +1111,60 @@ def check_case_flat(torch, label, dots, bias, scale, c, reps=10):
     return out
 
 
+def check_case_topc(torch, label, q, probe, eng, c, reps=10):
+    """ivf_topc vs its plain version on B4's own dots on the card: ids and
+    score bits equal exactly. Times by CUDA events over `reps` calls: the
+    kernel, the plain version (fold, mask, `topk_stable` over [B, P*cap]:
+    the select before the kernel, as `ivf_search_pallas` ran it) and
+    `library_ms`, `topk_stable` alone over the folded and masked
+    [B, P*cap] scores, made beforehand; the bound: the dots read once,
+    the probed buckets' |v|^2 and ids once, the probes, and the [B, c]
+    scores and ids written once, at H100_BYTES_PER_S. Raises on
+    disagreement."""
+    from leann_tpu_torch.ops.bucket_kernels import ivf_bucket_dots
+    from leann_tpu_torch.ops.distance import topk_stable
+    from leann_tpu_torch.ops.ivf_topc import ivf_topc, ivf_topc_plain
+
+    args = (ivf_bucket_dots(q, probe, eng.bucket_vecs_bf16), probe,
+            eng.bucket_sq, eng.bucket_ids, c, eng.metric, eng.n)
+    got = ivf_topc(*args)
+    want = ivf_topc_plain(*args)
+    differ = int((got[1] != want[1]).any(dim=1).sum()) + int(
+        (got[0].view(torch.int32) != want[0].view(torch.int32)).any(
+            dim=1).sum())
+    turns = {"kernel": [], "plain": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        fn = ivf_topc if which == "kernel" else ivf_topc_plain
+        turns[which].append(cuda_ms(lambda: fn(*args), reps)[0])
+    dots = args[0]
+    p, b, cap = dots.shape
+    scores = dots.transpose(0, 1)
+    if eng.metric == "l2":
+        scores = 2.0 * scores - eng.bucket_sq[probe.long()]
+    scores = scores.reshape(b, p * cap)
+    scores = torch.where(eng.bucket_ids[probe.long()].reshape(b, p * cap)
+                         == eng.n, float("-inf"), scores)
+    lib_ms = cuda_ms(lambda: topk_stable(scores, c), reps)[0]
+    del scores
+    uniq = int(torch.unique(probe).numel())
+    bytes_ = (p * b * cap * 4 + uniq * cap * (4 + 4) + b * p * 4
+              + b * c * (4 + 8))
+    bound_ms = bytes_ / H100_BYTES_PER_S * 1e3
+    ms = float(np.mean(turns["kernel"]))
+    out = {"case": label, "b": b, "p": p, "cap": cap, "c": c,
+           "metric": eng.metric, "rows_differing": differ,
+           "max_abs_err": float(differ), "ms": ms,
+           "ms_turns": turns["kernel"],
+           "plain_ms": float(np.mean(turns["plain"])),
+           "plain_turns": turns["plain"], "library_ms": lib_ms,
+           "bound_ms": bound_ms, "bound_by": "bytes",
+           "roofline_pct": 100 * bound_ms / ms, "distinct_buckets": uniq}
+    if differ:
+        raise AssertionError(f"ivf_topc disagrees with its plain version: "
+                             f"{json.dumps(out)}")
+    return out
+
+
 # ------------------------------------------------------------------ phases
 
 
@@ -1122,7 +1193,7 @@ def phase_build():
     from leann_tpu_torch.ops import _cuda
 
     libs = ("fused_beam", "pq_beam", "ivf_bucket_dots", "ivf8_scan",
-            "gather_score", "flat_topk", "pq_beam_scan",
+            "gather_score", "flat_topk", "ivf_topc", "pq_beam_scan",
             "ivf_bucket_dots_pairs", "ivf8_scan_pairs", "gather_score_rowwise")
     gpp = {}
 
@@ -1141,7 +1212,7 @@ def phase_build():
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "native_s": gpp["s"], "native_lib": native._compiled_lib_path(),
           "sources": [k["source"]
-                      for k in (FUSED, PQ, DOTS, IVF8, GATHER, FLAT)]
+                      for k in (FUSED, PQ, DOTS, IVF8, GATHER, FLAT, TOPC)]
           + ["leann_tpu_torch/csrc/leann_native.cpp"]})
     if gpp["lib"] is None:
         raise AssertionError("build: g++ could not build the native BM25 "
@@ -1597,9 +1668,12 @@ def phase_bench(torch, dev, n, counter, sift):
     rows, failures, pq = [], [], None
     for backend in bench.BACKENDS:
         t0 = time.perf_counter()
+        k0 = (counter(DOTS["name"]), counter(TOPC["name"]))
         out = bench.run(backend, cfg, pool=sift["pool"], graph=sift["graph"],
                         device=dev)
         rec, launches = out["recall"], out["launches"]
+        launches.update({DOTS["name"]: counter(DOTS["name"]) - k0[0],
+                         TOPC["name"]: counter(TOPC["name"]) - k0[1]})
         row = {"backend": backend, "line": out["line"], "recall10": rec,
                "qps": out["qps"], "qps_std": out["qps_std"],
                "ms_per_batch": out["ms_per_batch"],
@@ -1611,7 +1685,9 @@ def phase_bench(torch, dev, n, counter, sift):
             backend, (False, False))
         if not bench_line_ok(out["line"], backend):
             failures.append(f"{backend}: line {out['line']}")
-        if (launches[FUSED["name"]] > 0, launches[PQ["name"]] > 0) != want:
+        if (launches[FUSED["name"]] > 0, launches[PQ["name"]] > 0) != want \
+                or {launches[DOTS["name"]] > 0, launches[TOPC["name"]] > 0} \
+                != {backend == "ivf"}:
             failures.append(f"{backend}: launches {launches}")
         if backend == "vamana":
             # the sift phase's engine on the same pool, graph and
@@ -1816,11 +1892,14 @@ def qps_windows(torch, fn, windows):
 
 
 def phase_ivf(torch, dev, n, counter):
-    """BASELINE config 1 / bench.py's IVF config through IvfEngine: the
-    torch scan (`search`, what IvfSearcher serves) and the kernel path
-    (`search_pallas`, kernel ivf_bucket_dots) at nprobe 8."""
+    """BASELINE config 1 / bench.py's IVF config through IvfEngine at
+    nprobe 8: the main path (`search`, what IvfSearcher serves: kernel B4
+    scores the probed buckets, kernel ivf_topc keeps the top-C) and
+    `search_pallas` (the same two kernels, unchunked, outside the spans)."""
+    from leann_tpu_torch.ops.bucket_kernels import ivf_bucket_dots
     from leann_tpu_torch.ops.distance import exact_topk
-    from leann_tpu_torch.ops.ivf import IvfEngine
+    from leann_tpu_torch.ops.ivf import IvfEngine, ivf_search
+    from leann_tpu_torch.ops.ivf_topc import ivf_topc
 
     d, batch, nq, m = 128, 2048, 1024, 4
     t0 = time.perf_counter()
@@ -1833,40 +1912,51 @@ def phase_ivf(torch, dev, n, counter):
     engine_s = time.perf_counter() - t0
     _, oracle = exact_topk(queries, corpus, 10, metric="l2", device=dev)
 
-    c0 = counter()
-    rec_torch = recall_at(eng.search(queries, k=10, nprobe=NPROBE)[0], oracle)
-    torch_launches = counter() - c0
-    rec_kernel = recall_at(eng.search_pallas(queries, k=10, nprobe=NPROBE)[0],
-                           oracle)
-    kernel_launches = counter() - c0 - torch_launches
+    def kernels():
+        return (ivf_bucket_dots.launches, ivf_topc.launches)
+
+    c0, paths0 = kernels(), dict(ivf_search.paths)
+    rec_main = recall_at(eng.search(queries, k=10, nprobe=NPROBE)[0], oracle)
+    c1 = kernels()
+    main_paths = {k: v - paths0[k] for k, v in ivf_search.paths.items()}
+    rec_pallas = recall_at(eng.search_pallas(queries, k=10,
+                                             nprobe=NPROBE)[0], oracle)
+    c2 = kernels()
 
     windows = [torch.from_numpy(noisy_rows(corpus, (m, batch), 2000 + w)).to(dev)
                for w in range(3)]
     out = {}
     for name, fn in (
-            ("torch", lambda q: eng.search_device(q, k=10, nprobe=NPROBE)),
-            ("kernel", lambda q: eng.search_pallas_device(
+            ("main", lambda q: eng.search_device(q, k=10, nprobe=NPROBE)),
+            ("pallas", lambda q: eng.search_pallas_device(
                 q, k=10, nprobe=NPROBE))):
         per_batch, qps = qps_windows(torch, fn, windows)
         out[name] = {"ms_per_batch": per_batch, "qps_windows": qps,
                      "qps_mean": float(np.mean(qps)),
                      "profile": profile(torch, lambda: [fn(q) for q in windows[1]])}
+    launches_main = [b - a for a, b in zip(c0, c1)]
+    launches_pallas = [b - a for a, b in zip(c1, c2)]
     emit({"phase": "ivf", "n": n, "d": d, "n_clusters": IVF_CLUSTERS,
           "buckets": eng.bucket_cent.shape[0], "cap": eng.cap,
           "nprobe": NPROBE, "gen_s": gen_s, "engine_s": engine_s,
-          "queries": nq, "batch": batch, "recall10_torch": rec_torch,
-          "recall10_kernel": rec_kernel, "launches_torch": torch_launches,
-          "launches_kernel": kernel_launches, **out})
-    if min(rec_torch, rec_kernel) < IVF_MIN_RECALL or \
-            abs(rec_torch - rec_kernel) > 0.002:
-        raise AssertionError(f"ivf: recall@10 {rec_torch} (torch) vs "
-                             f"{rec_kernel} (kernel)")
-    if torch_launches or kernel_launches <= 0:
-        raise AssertionError("ivf: the kernel path must launch "
-                             "ivf_bucket_dots and the torch scan must not")
+          "queries": nq, "batch": batch, "recall10_main": rec_main,
+          "recall10_pallas": rec_pallas, "launches_main": launches_main,
+          "launches_pallas": launches_pallas, "paths_main": main_paths,
+          **out})
+    if min(rec_main, rec_pallas) < IVF_MIN_RECALL or \
+            abs(rec_main - rec_pallas) > 0.002:
+        raise AssertionError(f"ivf: recall@10 {rec_main} (main) vs "
+                             f"{rec_pallas} (search_pallas)")
+    if min(launches_main + launches_pallas) <= 0 or \
+            main_paths != {"kernel": 1, "torch": 0}:
+        raise AssertionError("ivf: search and search_pallas must launch "
+                             "ivf_bucket_dots and ivf_topc, search once "
+                             f"through ivf_search's kernel path: "
+                             f"{launches_main}, {launches_pallas}, "
+                             f"{main_paths}")
     data = {"corpus": corpus, "queries": queries, "oracle": oracle,
             "centers": eng.centers, "assign": eng.assign,
-            "recall10": rec_torch}
+            "recall10": rec_main}
     return eng, windows[0][0], data
 
 
@@ -1956,9 +2046,9 @@ def phase_ivf8(torch, dev, n, counter):
 
 def phase_rag_ivf(torch, dev, n_docs, counter):
     """The rag corpus through the `ivf` backend's entry points: build
-    (k-means + the calibrated nprobe in the meta), IndexSearcher.search
-    on 256 passage texts. IvfSearcher serves the torch scan, so no kernel
-    may launch."""
+    (k-means + the calibrated nprobe in the meta, whose oracle probes
+    every bucket), IndexSearcher.search on 256 passage texts. IvfSearcher
+    serves kernels B4 and ivf_topc (`drive` checks that both launch)."""
     from leann_tpu_torch.embed.fake import FakeEmbedding
     from leann_tpu_torch.index import (
         IndexSearcher, SearchOptions, StreamingIndexBuilder,
@@ -2009,9 +2099,6 @@ def phase_rag_ivf(torch, dev, n_docs, counter):
           "at_calibrated_nprobe": cal, "at_complexity_64": out[64]})
     if cal["self_hit1"] < 0.99 or cal["recall10"] < RAG_IVF_MIN_RECALL:
         raise AssertionError(f"rag_ivf: {cal} at nprobe {nprobe}")
-    if counter():
-        raise AssertionError("rag_ivf: a kernel launched; IvfSearcher must "
-                             "serve the torch scan")
 
 
 def phase_gather(torch, dev, n, counter):
@@ -2609,12 +2696,14 @@ def phase_sharded(torch, dev, n, counter, sift, rag_base, rag_q, pick):
                 corpus, mesh, "l2", n_clusters=IVF_CLUSTERS // SHARDS), {}),
             ("ivf8", lambda: ShardedIvf8Index(corpus, mesh, "l2"), {})):
         (index, init_s), got = launches(lambda: timed(make), fb, pb)
-        (ii, _), search_s = timed(lambda: index.search(
-            queries, k=10, nprobe=NPROBE, **kw))
+        ((ii, _), search_s), got_s = launches(lambda: timed(
+            lambda: index.search(queries, k=10, nprobe=NPROBE, **kw)),
+            DOTS["name"], TOPC["name"])
         rows[name] = {"init_s": init_s, "search_s": search_s,
                       "buckets": index.n_buckets, "nprobe": NPROBE,
                       "recall10": recall_at(ii, oracle),
-                      "launches": sum(got.values())}
+                      "launches": sum(got.values()),
+                      "launches_search": got_s}
         del index
 
     meta = IndexMeta.load(meta_path(rag_base))
@@ -2660,10 +2749,12 @@ def phase_sharded(torch, dev, n, counter, sift, rag_base, rag_q, pick):
             rows["pq"]["launches_search"] <= 0 or rows["pq"]["launches_fused"]:
         bad.append("pq")
     if rows["ivf"]["recall10"] < SHARDED_IVF_MIN_RECALL or \
-            rows["ivf"]["launches"]:
+            rows["ivf"]["launches"] or \
+            min(rows["ivf"]["launches_search"].values()) <= 0:
         bad.append("ivf")
     if rows["ivf8"]["recall10"] < SHARDED_IVF8_MIN_RECALL or \
-            rows["ivf8"]["launches"]:
+            rows["ivf8"]["launches"] or \
+            max(rows["ivf8"]["launches_search"].values()):
         bad.append("ivf8")
     if hit1 < 0.99 or not rows["rag"]["reload_equal"] or \
             not rows["rag"]["sidecar_reused"] or loads[0]["n_shards"] != 1:
@@ -2991,8 +3082,10 @@ def phase_cli(torch, dev, n_docs, counter, rag_base, pick, rag_row):
     `remove`, `config path`; then `serve`'s `ServerState` over the rag
     index (warm, 256 requests from 32 clients coalesced by the
     MicroBatcher, a batch of 64, /health /info /metrics) and `mcp`'s
-    `McpServer.handle`. B1 must launch, no other kernel. Returns the
-    row, with the flush size the HTTP traffic produced most often."""
+    `McpServer.handle`. B1 must launch, and B4 and ivf_topc (the ivf
+    index's calibration and searches after `reindex`), no other kernel.
+    Returns the row, with the flush size the HTTP traffic produced most
+    often."""
     import collections
     import threading
 
@@ -3652,7 +3745,15 @@ def phase_kernels_main(torch, rag, sift, deep, ivf, ivf8, gather, recompute,
     flat_rows += [check_case_flat(torch, *case) for case in hybrid[1]]
     emit({"phase": "kernels_main", "kernel": FLAT["name"],
           "cases": flat_rows, "library_ms": flat_rows[-1]["library_ms"]})
-    return rows, pq_rows, dots_rows, ivf8_rows, gather_rows, flat_rows
+
+    # the IVF benchmark cell's batch: the ivf phase's engine and queries,
+    # C = 40 (k = 10, rescore factor 4)
+    topc_rows = [check_case_topc(torch, "ivf search", ivf_q,
+                                 probes(ivf_eng, ivf_q), ivf_eng, 40)]
+    emit({"phase": "kernels_main", "kernel": TOPC["name"],
+          "cases": topc_rows, "library_ms": topc_rows[0]["library_ms"]})
+    return (rows, pq_rows, dots_rows, ivf8_rows, gather_rows, flat_rows,
+            topc_rows)
 
 
 def main() -> int:
@@ -3668,11 +3769,14 @@ def main() -> int:
     from leann_tpu_torch.ops.fused_beam import fused_beam_search
     from leann_tpu_torch.ops.flat_topk import flat_topk
     from leann_tpu_torch.ops.gather_score import gather_score
+    from leann_tpu_torch.ops.ivf_topc import ivf_topc
     from leann_tpu_torch.ops.pq_beam import pq_beam_search
 
     wrappers = {FUSED["name"]: fused_beam_search, PQ["name"]: pq_beam_search,
                 DOTS["name"]: ivf_bucket_dots, IVF8["name"]: ivf8_bucket_scores,
-                GATHER["name"]: gather_score, FLAT["name"]: flat_topk}
+                GATHER["name"]: gather_score, FLAT["name"]: flat_topk,
+                TOPC["name"]: ivf_topc}
+    ivf_kernels = [DOTS["name"], TOPC["name"]]
     launches = dict.fromkeys(wrappers, 0)
 
     def drive(phase, kernels, n, *extra):
@@ -3721,31 +3825,32 @@ def main() -> int:
         rag = drive(phase_rag, [FUSED["name"]], RAG_N, rag_root)
         drive(phase_native, (), RAG_N, rag[4])
         *sift, sift_data = drive(phase_sift, [FUSED["name"]], SIFT_N)
-        bench = drive(phase_bench, [FUSED["name"], PQ["name"], FLAT["name"]],
-                      SIFT_N, sift_data)
+        bench = drive(phase_bench, [FUSED["name"], PQ["name"], FLAT["name"]]
+                      + ivf_kernels, SIFT_N, sift_data)
         deep = drive(phase_deep, [PQ["name"]], DEEP_N)
-        *ivf, ivf_data = drive(phase_ivf, [DOTS["name"]], IVF_N)
+        *ivf, ivf_data = drive(phase_ivf, ivf_kernels, IVF_N)
         *ivf8, ivf8_data = drive(phase_ivf8, [IVF8["name"]], IVF8_N)
         gather = drive(phase_gather, [GATHER["name"]], GATHER_N)
         gather += (gather_timers(torch, *gather),)
         drive(phase_ivfpq, (), IVF8_N, ivf8_data, ivf_data)
         del ivf_data, ivf8_data
-        drive(phase_rag_ivf, (), RAG_N)
+        drive(phase_rag_ivf, ivf_kernels, RAG_N)
         drive(phase_encode, [FUSED["name"]], RAG_N, rag[3])
         recompute = drive(phase_recompute, [FUSED["name"]], RECOMPUTE_N)
-        sharded = drive(phase_sharded, [FUSED["name"], PQ["name"]],
-                        SHARDED_N, sift_data, rag[4], rag[1], rag[2])
+        sharded = drive(phase_sharded, [FUSED["name"], PQ["name"]]
+                        + ivf_kernels, SHARDED_N, sift_data, rag[4], rag[1],
+                        rag[2])
         drive(phase_api, [FUSED["name"]], RAG_N, rag[4], rag[1], rag[2],
               rag[3])
-        cli = drive(phase_cli, [FUSED["name"]], RAG_N, rag[4], rag[2],
-                    rag[3])
+        cli = drive(phase_cli, [FUSED["name"]] + ivf_kernels, RAG_N, rag[4],
+                    rag[2], rag[3])
         hybrid = drive(phase_hybrid, [FLAT["name"]], HYBRID_N)
     finally:
         shutil.rmtree(rag_root, ignore_errors=True)
     del sift_data
     t0 = time.perf_counter()
     (main_rows, pq_main, dots_main, ivf8_main, gather_main,
-     flat_main) = phase_kernels_main(
+     flat_main, topc_main) = phase_kernels_main(
         torch, rag, sift, deep, ivf, ivf8, gather, recompute, sharded, cli,
         bench, hybrid)
     log(f"chip_smoke: kernels_main {time.perf_counter() - t0:.1f}s")
@@ -3766,7 +3871,8 @@ def main() -> int:
                         if c["case"] == "ivf8 search B2048"),
              ivf8_grid + ivf8_main),
             (GATHER, gather_main[-1], gather_grid + gather_main),
-            (FLAT, flat_main[0], flat_main)):
+            (FLAT, flat_main[0], flat_main),
+            (TOPC, topc_main[0], topc_main)):
         kernels.append({
             **info, "launches": launches[info["name"]],
             "max_abs_err": max(c["max_abs_err"] for c in all_rows),

@@ -12,7 +12,8 @@ device. SIFT-like synthetic workload per BASELINE.json config 1 (1M x
 oracle, steady-state QPS at batch 2048. Backends (`BENCH_BACKEND`):
 
   flat    ExactEngine (two-stage bf16 scan + f32 rescore)
-  ivf     IvfEngine (torch bucket scan, `BENCH_CLUSTERS`, `BENCH_NPROBE`)
+  ivf     IvfEngine (kernels B4 and ivf_topc on a card, `BENCH_CLUSTERS`,
+          `BENCH_NPROBE`)
   ivfpq   IvfPqEngine (ADC buckets + int8 rescore, m from 16 / 12 / 8)
   vamana  FusedBeamEngine over the Vamana graph (kernel B1,
           `csrc/fused_beam.cu`; `BENCH_R`, `BENCH_BUILD_L`,

@@ -79,6 +79,11 @@ SIGNATURES = {
                             + [ctypes.c_longlong] + [_PTR] * 2, _I32),
         "leann_flat_topk_smem": ([_PTR] * 2, _I32),
     },
+    "ivf_topc": {
+        "leann_ivf_topc": ([_PTR] * 4 + [_I32] * 8 + [_PTR] * 3
+                           + [ctypes.c_longlong] + [_PTR], _I32),
+        "leann_ivf_topc_smem": ([_PTR], _I32),
+    },
 }
 
 

@@ -5,8 +5,10 @@ is named for what it holds).
   ivf_bucket_dots      (B4) bf16 dot products of each query with the
                        rows of its probed buckets, [P, B, cap]; the CUDA
                        kernel `csrc/ivf_bucket_dots.cu` runs on CUDA
-                       tensors. Its caller is `ivf_search_pallas`, which
-                       `IvfEngine.search_pallas` runs.
+                       tensors. Its callers are `ops/ivf.py:ivf_search` on
+                       the card (what `IvfSearcher` serves) and
+                       `ivf_search_pallas`, which `IvfEngine.search_pallas`
+                       runs; `ops/ivf_topc.py` selects from its dots.
   ivf8_bucket_scores   (B2) residual-int8 bucket scores (centroid term +
                        scale * int8 dot, l2 fold, -1 slots to -inf),
                        [B, P, cap]; the CUDA kernel `csrc/ivf8_scan.cu`
@@ -249,24 +251,17 @@ def ivf_search_pallas(
     metric: str,
     sentinel: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Centroid GEMM -> top-nprobe -> kernel B4 -> l2 fold -> sentinel
-    mask -> one top-k over the flattened [B, P*cap] candidates. Returns
-    (top_scores [B, k], top_ids [B, k] int64, -1 for empty slots)."""
-    b = queries.shape[0]
-    cap = bucket_ids_pad.shape[1]
+    """Centroid GEMM -> top-nprobe -> kernel B4 -> `ivf_topc` (the l2
+    fold, the sentinel mask and one top-k over the flattened [B, P*cap]
+    candidates). Returns (top_scores [B, k], top_ids [B, k] int64, -1 for
+    empty slots)."""
+    from leann_tpu_torch.ops.ivf_topc import ivf_topc
+
     c_scores = pairwise_scores(queries, centroids, metric)
-    _, probe = topk_stable(c_scores, nprobe)                 # [B, P]
-    dots = ivf_bucket_dots(queries, probe.to(torch.int32),
-                           bucket_vecs_bf16)                  # [P, B, cap]
-    dots = dots.transpose(0, 1)                               # [B, P, cap]
-    ids = bucket_ids_pad[probe].long()                        # [B, P, cap]
-    scores = 2.0 * dots - bucket_sq_pad[probe] if metric == "l2" else dots
-    scores = scores.reshape(b, nprobe * cap)
-    ids = ids.reshape(b, nprobe * cap)
-    scores = torch.where(ids == sentinel, NEG_INF, scores)
-    ids = torch.where(ids == sentinel, -1, ids)
-    top_scores, pos = topk_stable(scores, k)
-    return top_scores, torch.gather(ids, 1, pos)
+    probe = topk_stable(c_scores, nprobe)[1].to(torch.int32)  # [B, P]
+    dots = ivf_bucket_dots(queries, probe, bucket_vecs_bf16)  # [P, B, cap]
+    return ivf_topc(dots, probe, bucket_sq_pad, bucket_ids_pad, k, metric,
+                    sentinel)
 
 
 # ------------------------------------------------------- B2: residual int8

@@ -5,15 +5,17 @@ Search is three steps of matrix-shaped work:
 
     1. score all centroids:      Q @ C.T              one GEMM
     2. pick top-nprobe clusters per query              one top-k
-    3. scan the nprobe probed buckets; each step gathers a [B, cap, D]
-       block of bf16 bucket vectors and scores it as a batched product,
-       merging a running top-C; the C survivors are rescored in f32
+    3. scan the nprobe probed buckets in bf16 and keep the top-C of
+       their slots; the C survivors are rescored in f32
 
-Step 3 is plain PyTorch in `ivf_search` (`IvfEngine.search`, what
-`IvfSearcher` serves; the reference left it to XLA outside any kernel).
-`IvfEngine.search_pallas` runs the same scan through kernel B4
-(`ops/bucket_kernels.py`, CUDA on the card). The build is k-means on the
-device.
+Step 3 is `ivf_search` (`IvfEngine.search`, what `IvfSearcher` serves; the
+reference left it to XLA outside any kernel). On the card kernel B4
+(`ops/bucket_kernels.py`) scores the probed buckets and kernel `ivf_topc`
+(`ops/ivf_topc.py`) keeps the top-C; on the CPU each probe gathers a
+[B, cap, D] block of bf16 bucket vectors, scores it as a batched product
+and merges a running top-C. `IvfEngine.search_pallas` runs B4 and the
+select unchunked, as the reference's Pallas path does (on the CPU, their
+plain versions). The build is k-means on the device.
 
 Bucket layout: vectors are re-packed into [K', cap, D] padded buckets
 (cap ~= 1.3 x mean occupancy); rows beyond cap spill into extra buckets
@@ -235,10 +237,11 @@ class IvfEngine:
         self, queries, k: int = 10, nprobe: int = 32,
         rescore_factor: int = 4,
     ) -> Tuple[np.ndarray, np.ndarray]:
-        """Kernel path: the probed buckets are scored by kernel B4
-        (`ivf_bucket_dots`, CUDA on the card) instead of a gathered
-        batched product; results rescored in f32. Returns numpy (ids,
-        scores)."""
+        """The reference's kernel path: kernel B4 (`ivf_bucket_dots`)
+        scores the probed buckets and `ivf_topc` keeps the top-C over the
+        flattened [B, P*cap] slots, in one call with no spans (on the CPU
+        their plain versions; on the card the kernels `search` also runs);
+        results rescored in f32. Returns numpy (ids, scores)."""
         ids, scores = self.search_pallas_device(
             queries, k=k, nprobe=nprobe, rescore_factor=rescore_factor)
         return ids.cpu().numpy(), scores.cpu().numpy()
@@ -265,9 +268,10 @@ class IvfEngine:
         self, queries, k: int = 10, nprobe: int = 32,
         rescore_factor: int = 4,
     ) -> Tuple[np.ndarray, np.ndarray]:
-        """Buckets are scanned in bf16 (f32 accumulation); the
-        rescore_factor*k survivors are rescored at full f32 against the
-        resident corpus. Returns numpy (ids, scores)."""
+        """Buckets are scanned in bf16 (f32 accumulation; `ivf_search`,
+        kernels B4 and `ivf_topc` on the card); the rescore_factor*k
+        survivors are rescored at full f32 against the resident corpus.
+        Returns numpy (ids, scores)."""
         ids, scores = self.search_device(
             queries, k=k, nprobe=nprobe, rescore_factor=rescore_factor)
         return ids.cpu().numpy(), scores.cpu().numpy()
@@ -372,18 +376,29 @@ def ivf_search(
     bucket_live: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Stage-1 candidate generation: bf16 bucket scan (exact float32
-    products of bf16 values, float32 sums) with a running top-k over the
-    probes; callers rescore the survivors in f32 (IvfEngine.search).
-    Returns (scores [B, k], ids [B, k] int64, -1 for empty slots).
+    products of bf16 values, float32 sums) and the exact top-k over the
+    probes' slots (ties to the earlier probe, then the lower slot); callers
+    rescore the survivors in f32 (IvfEngine.search). Returns (scores
+    [B, k], ids [B, k] int64, -1 for empty slots).
+
+    The device picks the path, and `ivf_search.paths` counts each. CUDA
+    tensors take the kernels (`_kernel_scan`): kernel B4 scores the probed
+    buckets and kernel `ivf_topc` keeps the top-k of its dots. CPU tensors
+    take the plain scan: per probe a gather of the bucket rows, the
+    batched product, the l2 fold and the sentinel mask, and a running
+    top-k (`cat`, `topk_stable`, `gather`). The two return the same top-k
+    of the same dots (`ops/ivf_topc.py`); the dots differ only in the
+    order of their float32 sums.
 
     Device spans: `ivf.probe` (the centroid scores and top-nprobe), then
-    per probe `ivf.scan` (the bucket gather, product, bias and sentinel
-    masks) and `ivf.merge` (the running top-k: `cat`, `topk_stable`,
-    `gather`). While tracing is on (`utils.trace.tracing`), a call given
-    `bucket_live` ([K'], each bucket's live, non-sentinel rows) adds the
-    live rows of its probed buckets, summed on the device, to
-    `ivf_search.rows` and its queries to `ivf_search.traced_queries`,
-    under `_cuda.count_work`'s lock and with no sync."""
+    `ivf.scan` (B4 with its work list's key sort; on the CPU per probe the
+    gather, product, fold and masks) and `ivf.merge` (the select; on the
+    CPU per probe the running top-k). While tracing is on
+    (`utils.trace.tracing`), a call given `bucket_live` ([K'], each
+    bucket's live, non-sentinel rows) adds the live rows of its probed
+    buckets, summed on the device, to `ivf_search.rows` and its queries to
+    `ivf_search.traced_queries`, under `_cuda.count_work`'s lock and with
+    no sync."""
     b = queries.shape[0]
     dev = queries.device
     with device_span("ivf.probe"):
@@ -392,6 +407,11 @@ def ivf_search(
     if bucket_live is not None and tracing():
         _cuda.count_work(ivf_search, rows=bucket_live[probe].sum(),
                          traced_queries=b)
+    if dev.type == "cuda":
+        _cuda.count_path(ivf_search, "kernel")
+        return _kernel_scan(queries, probe, bucket_ids, bucket_vecs,
+                            bucket_sq, k, metric, sentinel)
+    _cuda.count_path(ivf_search, "torch")
     q_score = queries.to(torch.bfloat16).float()
     best_scores = torch.full((b, k), NEG_INF, dtype=torch.float32, device=dev)
     best_ids = torch.full((b, k), -1, dtype=torch.int64, device=dev)
@@ -415,3 +435,35 @@ def ivf_search(
 
 ivf_search.rows = 0
 ivf_search.traced_queries = 0
+ivf_search.paths = {"kernel": 0, "torch": 0}
+
+
+def _kernel_scan(queries, probe, bucket_ids, bucket_vecs, bucket_sq,
+                 k: int, metric: str, sentinel: int):
+    """`ivf_search`'s stage 1 on the card: B4's dots [P, b, cap] under
+    `ivf.scan`, then `ivf_topc` under `ivf.merge`, in chunks of b queries
+    whose dots and select buffers stay within `_PLAIN_CHUNK` elements (one
+    chunk at the IVF benchmark cell; a search that probes every bucket, as
+    `calibrate_nprobe`'s oracle does, takes several). One query's dots are
+    smaller than the bucket table, so memory stays bounded at any
+    nprobe."""
+    from leann_tpu_torch.ops.bucket_kernels import (
+        _PLAIN_CHUNK, ivf_bucket_dots,
+    )
+    from leann_tpu_torch.ops.ivf_topc import buffers, ivf_topc
+
+    b, nprobe = probe.shape
+    per_query = nprobe * bucket_ids.shape[1] + buffers(k)[1]
+    chunk = max(1, _PLAIN_CHUNK // per_query)
+    parts = []
+    for s in range(0, b, chunk):
+        with device_span("ivf.scan"):
+            pr = probe[s : s + chunk].to(torch.int32)
+            dots = ivf_bucket_dots(queries[s : s + chunk], pr, bucket_vecs)
+        with device_span("ivf.merge"):
+            parts.append(ivf_topc(dots, pr, bucket_sq, bucket_ids, k, metric,
+                                  sentinel))
+        del dots
+    if len(parts) == 1:
+        return parts[0]
+    return (torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts]))

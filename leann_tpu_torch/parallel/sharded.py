@@ -19,9 +19,11 @@ Four engines, as in the reference:
   ShardedIvf8Index   per-shard residual-int8 buckets, rescored from the
                      same payload
 
-The IVF engines run the plain scans (`ops/ivf.ivf_search`,
-`ops/ivf_int8.ivf8_search`), as the reference's run XLA's, not kernels B4
-or B2. Data that several dp rows share is held once per distinct device.
+The IVF engines scan each shard with `ops/ivf.ivf_search` (kernels B4 and
+`ivf_topc` on the card, the plain scan on the CPU) and
+`ops/ivf_int8.ivf8_search` (the plain scan, as the reference's runs
+XLA's, not kernel B2). Data that several dp rows share is held once per
+distinct device.
 """
 
 from __future__ import annotations
