@@ -26,33 +26,26 @@ on stdout:
            hops merged by the bitonic network because scores tied):
            N=4096, D=128, R=48, L=64, E in {1, 2}, l2 and ip, an odd
            batch with `exclude`, track_visited in {0, 160}; each row
-           with the slow-merge share, CTAs per SM and the time of the
-           earlier design (`ms_pr4`);
+           with the slow-merge share and CTAs per SM;
            pq_beam_search vs pq_beam_search_plain: N=4096, R=48, L=64,
            B=1023 with `exclude`, ksub 16 and 256, l2 and ip, E 1 and
            2, visited log 0 and 256, m=16 at D=96, m=64 at D=768, and a
            residual case (coarse_m=2, m=12, l2 norm columns); each row
-           with CTAs per SM, the settle pass's queries and empty merges,
-           and the earlier design's time (`ms_pr6`: its source
-           `csrc/pq_beam_scan.cu`, built beside, timed in turns);
+           with CTAs per SM and the settle pass's queries and empty
+           merges;
            ivf_bucket_dots and ivf8_bucket_scores vs their plain versions
            on small grids: D of 96, 128, 768 (16-byte copies) and 24 / 20
            (single elements), caps not multiples of 32, odd batches,
            empty (-1) slots, a probe list that repeats one bucket; l2
            and ip for ivf8; each row with a repeat (equal bits), the
-           earlier design (one CTA per (query, probe): its sources
-           `csrc/ivf_bucket_dots_pairs.cu` / `ivf8_scan_pairs.cu`, built
-           beside) held to the same tolerance and timed in turns
-           (`ms_pr3`), the reuse (distinct buckets, queries per bucket),
-           the work items and CTAs per SM;
+           reuse (distinct buckets, queries per bucket), the work items
+           and CTAs per SM;
            gather_score vs gather_score_plain: D of 96, 128, 64 (the
            staged kernel), 100 (4-byte) and 50 (single bytes: the per-row
            kernel), R of 48, 128, 7 and 200, odd batches, duplicate ids
            and the rows 0 and N-1, and row offsets past 2^31 bytes (17M x
            128 made on the card, B=64, R=48, ids N-1, 0 and rows above
-           2^24); each row with the path taken, the launch plan, and the
-           first design (`csrc/gather_score_rowwise.cu`, built beside)
-           held to the same tolerance and timed in turns (`ms_pr4`)
+           2^24); each row with the path taken and the launch plan
   rag      StreamingIndexBuilder over 20,000 fake-embedded 768-d
            passages (backend hnsw, R=32, L=64, ip), then
            IndexSearcher.search on 256 passage texts at complexity 64
@@ -100,19 +93,20 @@ on stdout:
            breakdown of one batch at both beams
   ivf      BASELINE config 1 / bench.py's IVF config: the sift mixture
            at 1M x 128 l2, IvfEngine(n_clusters=2000), nprobe 8:
-           recall@10 on 1024 queries of `search` (the main path:
-           `ivf_search` takes kernel B4, ivf_bucket_dots, then kernel
-           ivf_topc) and `search_pallas` (the same kernels, unchunked),
-           both launching both kernels and `search` counted once on
-           `ivf_search.paths["kernel"]`; device QPS of both at batch
-           2048 by CUDA events, a profile of one window each
+           recall@10 on 1024 queries of `search` (the device picks its
+           path: `ivf_search` takes kernel B4, ivf_bucket_dots, then
+           kernel ivf_topc), launching both kernels and counted once on
+           `ivf_search.paths["kernel"]`; device QPS at batch 2048 by CUDA
+           events, a profile of one window
   ivf8     BASELINE config 2 at its full scale: the same mixture at
            10M x 96 l2, k-means (two runs of its first iteration on a 1M
            slice must give the same bits), IvfInt8Engine(n_clusters=6324),
-           nprobe 8, with
-           LEANN_IVF8_PALLAS=1 (kernel ivf8_bucket_scores) and without
-           (torch scan): recall@10 on 1024 queries, device QPS at batches
-           512 and 2048, calibrate_nprobe(0.95), a profile of each path
+           nprobe 8: recall@10 on 1024 queries of `search` (on the card
+           kernel ivf8_bucket_scores, which must launch) beside the
+           torch scan `ivf8_search` (ShardedIvf8Index's, which must not
+           launch it) on the engine's tables, device QPS of `search` at
+           batches 512 and 2048, a profile of one window,
+           calibrate_nprobe(0.95)
   gather   `evals.gather_roofline.run` at the reference's default shape:
            a 10M x 128 int8 corpus made on the card, B=2048, R=48, 50
            calls per window on distinct ids; the plain gather + product
@@ -265,10 +259,10 @@ on stdout:
            probing the 8 most-probed buckets); gather_score at the
            gather phase's (10M x 128, B=2048, R=48, distinct ids per
            call; its row also carries what `gather_timers` took right
-           after the gather phase, outside any phase's count: both
-           designs by the graph timer, the kernel's own time by
-           torch.profiler, both queued windows traced into kernel time
-           and idle gap per call, the SM and memory clocks around them);
+           after the gather phase, outside any phase's count: the kernel
+           by the graph timer, its own time by torch.profiler, the
+           queued window traced into kernel time and idle gap per call,
+           the SM and memory clocks around them);
            flat_topk at the flat benchmark cell's query chunk (256 x
            1,048,576 stage-1 dots of the sift corpus, l2, c = 80) and at
            the hybrid phase's serving flushes (the drive's own operands,
@@ -619,22 +613,11 @@ def kernel_bound(kw):
             "bytes" if t_bytes >= t_ops else "operations", expansions)
 
 
-# B1's device ms per case in its earlier design (a bitonic merge on every
-# hop, admission by scans), one NVIDIA H100 80GB HBM3 at 700 W (PERF.md
-# section 6): the main-path cases from that design's proof run, the
-# N=4096 grid from its source timed beside the current kernel
-B1_MS_BEFORE = defaultdict(lambda: None, {
-    "l2/E2/tv160": 2.367, "l2/E1/tv0": 3.004, "ip/E2/tv0": 2.424,
-    "ip/E1/tv160": 3.046, "l2/E2/tv0": 2.358, "ip/E2/tv160": 2.424,
-    "rag build": 2.014, "rag search L64": 1.343, "rag search L1024": 51.45,
-    "sift build": 10.673, "sift search": 5.365,
-})   # None for cases that design was never timed on
-
-
 def check_case(torch, label, kw, reps):
     """One kernel-vs-plain comparison on the card, with the kernel's and
     the plain version's device ms (the plain version counting its slow
-    merges), the bound and the earlier design's time. Raises unless ids, scores and the visited log are equal exactly
+    merges) and the bound. Raises unless ids, scores and the visited log
+    are equal exactly
     and the kernel's slow merges (hops merged by the bitonic network
     because scores tied) and active hops equal the plain version's
     counts."""
@@ -660,7 +643,7 @@ def check_case(torch, label, kw, reps):
            "n": kw["blocks_i8"].shape[0] - 1,
            "ids_equal": float(same.float().mean()), "all_equal": equal,
            "max_abs_err": err, "vlog_equal": vlog_eq, "ms": ms,
-           "ms_pr4": B1_MS_BEFORE[label], "plain_ms": plain_ms,
+           "plain_ms": plain_ms,
            "bound_ms": bound_ms, "bound_by": bound_by,
            "expansions": expansions, "hops": hops, "slow_merges": slow,
            "slow_merge_share": slow / max(1, hops),
@@ -702,46 +685,13 @@ def pq_bound(kw):
             "bytes" if t_bytes >= t_ops else "operations", expansions, hops)
 
 
-def pq_scan_search(torch, kw):
-    """pq_beam_search's arguments through B3's earlier design
-    (`csrc/pq_beam_scan.cu`, the same C interface): the yardstick the
-    current kernel is timed against."""
-    import ctypes
-
-    from leann_tpu_torch.ops import _cuda
-    from leann_tpu_torch.ops import pq_beam as pb
-
-    lib = _cuda.load("pq_beam_scan")
-    luts, rec = kw["luts"], kw["records"]
-    b, e, l = luts.shape[0], kw["expansions"], kw["beam_width"]
-    _, p2, v, vt = pb._sizes(l, e, kw["ring_size"], kw["track_visited"])
-    slots = pb.pq_layout(kw["r"], kw["m"], kw["bits"])[2]
-    out = [torch.empty((b, l), dtype=dt, device=luts.device)
-           for dt in (torch.int32, torch.float32)]
-    vlog = torch.empty((b, max(vt, 1)), dtype=torch.int32, device=luts.device)
-    hops = torch.empty((b,), dtype=torch.int32, device=luts.device)
-    err = lib.leann_pq_beam_search(
-        *(kw[k].data_ptr() for k in ("luts", "records", "seed_ids",
-                                     "seed_scores", "exclude")),
-        out[0].data_ptr(), out[1].data_ptr(), vlog.data_ptr() if vt else None,
-        hops.data_ptr(), (ctypes.c_int * kw["m"])(
-            *(pj * pb.LANES + off for pj, off in slots)),
-        b, kw["r"], kw["m"], kw["ksub"], kw["bits"], rec.shape[1],
-        kw["seed_ids"].shape[1], l, e, p2, v, vt, kw["max_iters"], kw["qb"],
-        rec.shape[0] - 1, torch.cuda.current_stream(luts.device).cuda_stream)
-    _cuda.check(lib, err, "pq_beam_scan")
-    return (*out, vlog) if vt else tuple(out)
-
-
 def check_case_pq(torch, label, kw, reps):
     """pq_beam_search vs pq_beam_search_plain on the card: ids, scores
     and visited log equal exactly (the plain version reproduces the
     kernel's roundings and query groups), with both device ms, the bound,
-    CTAs per SM, the settle pass's work (queries whose group stayed active
-    after they converged and whose beam holds a tie, and the empty merges
-    they take), and the earlier design's ms, timed in turns with the
-    kernel (earlier, current, current, earlier). Raises on any difference
-    of the kernel."""
+    CTAs per SM and the settle pass's work (queries whose group stayed
+    active after they converged and whose beam holds a tie, and the empty
+    merges they take). Raises on any difference of the kernel."""
     from leann_tpu_torch.ops import pq_beam as pb
 
     got = pb.pq_beam_search(**kw)
@@ -750,14 +700,7 @@ def check_case_pq(torch, label, kw, reps):
     same = got[0] == ref[0]
     both = same & torch.isfinite(ref[1])
     err = float((got[1] - ref[1]).abs()[both].max()) if bool(both.any()) else 0.0
-    before = pq_scan_search(torch, kw)
-    equal_before = all(bool(torch.equal(a, b)) for a, b in zip(before, ref))
-    turns = {"current": [], "earlier": []}
-    for which in ("earlier", "current", "current", "earlier"):
-        fn = ((lambda: pb.pq_beam_search(**kw)) if which == "current"
-              else (lambda: pq_scan_search(torch, kw)))
-        turns[which].append(cuda_ms(fn, reps)[0])
-    ms = float(np.mean(turns["current"]))
+    ms, _ = cuda_ms(lambda: pb.pq_beam_search(**kw), reps)
     bound_ms, bound_by, expansions, hops = pq_bound(kw)
     b, mk = kw["luts"].shape
     sc = got[1]
@@ -776,9 +719,6 @@ def check_case_pq(torch, label, kw, reps):
            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": bound_ms, "bound_by": bound_by,
            "expansions": expansions, "beam_tie_share": tie_share,
-           "ms_turns": turns["current"],
-           "ms_pr6": float(np.mean(turns["earlier"])),
-           "earlier_turns": turns["earlier"], "earlier_equal": equal_before,
            "settle_queries": int(settled.sum()),
            "settle_empty_merges": int(idle[settled].sum()),
            "ctas_per_sm": pb.ctas_per_sm(
@@ -849,15 +789,10 @@ def check_case_bucket(torch, label, kind, args, metric, reps, library=False):
     """A bucket kernel vs its plain version on the card: -inf positions
     equal exactly, no NaN, finite scores within 1e-5 x |q| x (largest row
     norm), l2 twice that (the plain version adds the same exact products
-    in another order); a repeat gives the same bits; the earlier design
-    (one CTA per (query, probe), `csrc/*_pairs.cu`, launched by
-    `evals.bucket_scan_cycles.earlier`) within the same tolerance, timed
-    in turns with the kernel (earlier, current, current, earlier:
-    `ms_pr3`). With
-    `library`, also torch.bmm in bf16 over the probed buckets gathered
-    beforehand (the gather not timed), a yardstick the port never calls.
-    Raises on disagreement."""
-    from leann_tpu_torch.evals.bucket_scan_cycles import earlier
+    in another order); a repeat gives the same bits. With `library`, also
+    torch.bmm in bf16 over the probed buckets gathered beforehand (the
+    gather not timed), a yardstick the port never calls. Raises on
+    disagreement."""
     from leann_tpu_torch.ops import bucket_kernels as bk
 
     q, probe, table = args[:3]
@@ -876,22 +811,11 @@ def check_case_bucket(torch, label, kind, args, metric, reps, library=False):
     live = torch.isfinite(ref)
     tol = 1e-5 * float(q.norm(dim=1).max()) * row * (
         2 if metric == "l2" else 1)
-
-    def agree(out):
-        """(-inf positions equal, any NaN, max error on live scores)"""
-        return (bool(torch.equal(torch.isneginf(out), torch.isneginf(ref))),
-                bool(torch.isnan(out).any()),
-                float((out - ref).abs()[live].max()) if bool(live.any())
-                else 0.0)
-
-    neg_equal, nan, err = agree(got)
-    before = lambda: earlier(torch, kind, args, metric)
-    e_neg, e_nan, e_err = agree(before())
-    turns = {"current": [], "earlier": []}
-    for which in ("earlier", "current", "current", "earlier"):
-        turns[which].append(cuda_ms(fn if which == "current" else before,
-                                    reps)[0])
-    ms = float(np.mean(turns["current"]))
+    neg_equal = bool(torch.equal(torch.isneginf(got), torch.isneginf(ref)))
+    nan = bool(torch.isnan(got).any())
+    err = (float((got - ref).abs()[live].max()) if bool(live.any())
+           else 0.0)
+    ms, _ = cuda_ms(fn, reps)
     bound_ms, bound_by = bucket_bound(kind, probe, cap, d)
     lib_ms = None
     if library:
@@ -907,30 +831,25 @@ def check_case_bucket(torch, label, kind, args, metric, reps, library=False):
            "d": d, "metric": metric, "buckets": table.shape[0],
            "neg_inf_equal": neg_equal, "exact": bool(torch.equal(got, ref)),
            "repeat_equal": repeat_equal, "max_abs_err": err, "tol": tol,
-           "ms": ms, "ms_turns": turns["current"],
-           "ms_pr3": float(np.mean(turns["earlier"])),
-           "earlier_turns": turns["earlier"], "earlier_max_abs_err": e_err,
-           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-           "library_ms": lib_ms, "ctas_per_sm": ctas,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": lib_ms, "ctas_per_sm": ctas,
            **bucket_reuse(torch, probe, table.shape[0], d)}
-    if (not neg_equal or nan or err > tol or not repeat_equal
-            or not e_neg or e_nan or e_err > tol):
+    if not neg_equal or nan or err > tol or not repeat_equal:
         raise AssertionError(f"{kind} kernel disagrees with its plain "
                              f"version: {json.dumps(out)}")
     return out
 
 
 def gather_timers(torch, corpus, ids, q):
-    """The roofline shape's other timers, both designs: per call by the
-    graph timer (`graph_window_ms`, the window captured once), the
-    kernel's own time by torch.profiler over one unqueued pass
+    """The roofline shape's other timers: per call by the graph timer
+    (`graph_window_ms`, the window captured once), the kernel's own time
+    by torch.profiler over one unqueued pass
     (`kernel_device_ms`, over the `kernel_events` it recorded of the M
     calls), and the queued window traced (`window_trace`: kernel time and
     idle gap per call) between two readings of the SM and memory clocks.
     Run right after the gather phase, whose corpus and ids it takes, and
     outside any phase's launch count: later in the run the profiler
     records none of this kernel's launches."""
-    from leann_tpu_torch.evals.gather_phases import rowwise_score
     from leann_tpu_torch.evals.gather_roofline import (
         graph_window_ms, window_trace,
     )
@@ -942,7 +861,6 @@ def gather_timers(torch, corpus, ids, q):
 
     m = ids.shape[0]
     current = lambda i: gs.gather_score(corpus, i, q)
-    earlier = lambda i: rowwise_score(corpus, i, q)
     torch.cuda.synchronize()
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
@@ -958,13 +876,10 @@ def gather_timers(torch, corpus, ids, q):
     out.update({
         "ms_graph": float(np.mean(graph_window_ms(
             current, [ids], q.device, 10))) / m,
-        "ms_pr4_graph": float(np.mean(graph_window_ms(
-            earlier, [ids], q.device, 10))) / m,
         "kernel_device_ms": (sum(e.device_time_total for e in evs) / 1e3
                              / events if events else None),
         "kernel_events": events,
         "trace": window_trace(current, ids, q.device, "gather_score"),
-        "trace_pr4": window_trace(earlier, ids, q.device, "gather_score"),
     })
     out["clocks_sm_mem"].append(smi("clocks.sm,clocks.mem"))
     return out
@@ -985,19 +900,16 @@ def check_case_gather(torch, label, corpus, ids, q, library=False):
     """gather_score vs gather_score_plain on the card, on the first
     [B, R] block of the id window `ids` [M, B, R]: within 1e-5 x |q| x
     (largest gathered row norm), no NaN, since both add the same exact
-    products in another order; the same checks for the first design
-    (`rowwise_score`). The kernel must take the path its shape names:
-    staged where D % 16 == 0 and the corpus is 16-byte aligned, else
-    per-row. Times are per call over three passes of the M blocks of the
+    products in another order. The kernel must take the path its shape
+    names: staged where D % 16 == 0 and the corpus is 16-byte aligned,
+    else per-row. Times are per call over three passes of the M blocks of the
     window after a warm pass, by the roofline's `window_ms` (distinct
     ids per call, so a call does not find its rows in L2 from the call
     before; each pass queued behind other device work, since a launch
-    costs the host more than the card at these sizes), the kernel and
-    the first design in turns (first, current, current, first: `ms`,
-    `ms_pr4`). With `library`, also `corpus[ids]` widened to bf16 then
-    torch.bmm, both inside the timed window, a yardstick the port never
-    calls. Raises on disagreement."""
-    from leann_tpu_torch.evals.gather_phases import rowwise_score
+    costs the host more than the card at these sizes). With `library`,
+    also `corpus[ids]` widened to bf16 then torch.bmm, both inside the
+    timed window, a yardstick the port never calls. Raises on
+    disagreement."""
     from leann_tpu_torch.evals.gather_roofline import window_ms
     from leann_tpu_torch.ops import gather_score as gs
 
@@ -1012,11 +924,8 @@ def check_case_gather(torch, label, corpus, ids, q, library=False):
     want_path = ("staged" if d % 16 == 0 and corpus.data_ptr() % 16 == 0
                  else "rowwise")
     ref = gs.gather_score_plain(corpus, ids[0], q)
-    before = rowwise_score(corpus, ids[0], q)
     err = float((got - ref).abs().max())
     nan = bool(torch.isnan(got).any())
-    e_err = float((before - ref).abs().max())
-    e_nan = bool(torch.isnan(before).any())
     tol = 1e-5 * float(q.norm(dim=1).max()) * float(
         corpus[ids[0].long()].float().norm(dim=2).max())
 
@@ -1025,12 +934,7 @@ def check_case_gather(torch, label, corpus, ids, q, library=False):
         return float(np.mean([window_ms(fn, ids, q.device)
                               for _ in range(3)])) / m
 
-    current = lambda i: gs.gather_score(corpus, i, q)
-    earlier = lambda i: rowwise_score(corpus, i, q)
-    turns = {"current": [], "earlier": []}
-    for which in ("earlier", "current", "current", "earlier"):
-        turns[which].append(per_call(current if which == "current"
-                                     else earlier))
+    ms = per_call(lambda i: gs.gather_score(corpus, i, q))
     plain_ms = per_call(lambda i: gs.gather_score_plain(corpus, i, q))
     bound_ms, bound_by = gather_bound(b, r, d)
     lib_ms = None
@@ -1041,15 +945,12 @@ def check_case_gather(torch, label, corpus, ids, q, library=False):
     out = {"case": label, "n": n, "b": b, "r": r, "d": d,
            "calls": m, "path": path, "exact": bool(torch.equal(got, ref)),
            "max_abs_err": err, "tol": tol,
-           "ms": float(np.mean(turns["current"])), "ms_turns": turns["current"],
-           "ms_pr4": float(np.mean(turns["earlier"])),
-           "earlier_turns": turns["earlier"], "earlier_max_abs_err": e_err,
-           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-           "library_ms": lib_ms,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": lib_ms,
            **{k: plan[k] for k in ("qpc", "rps", "chunks", "grid",
                                    "ctas_per_sm", "smem_bytes")}}
-    if (nan or not err <= tol or e_nan or not e_err <= tol
-            or path != want_path or plan["path"] != want_path):
+    if (nan or not err <= tol or path != want_path
+            or plan["path"] != want_path):
         raise AssertionError(f"gather_score disagrees with its plain "
                              f"version or took the wrong path: "
                              f"{json.dumps(out)}")
@@ -1115,8 +1016,8 @@ def check_case_topc(torch, label, q, probe, eng, c, reps=10):
     """ivf_topc vs its plain version on B4's own dots on the card: ids and
     score bits equal exactly. Times by CUDA events over `reps` calls: the
     kernel, the plain version (fold, mask, `topk_stable` over [B, P*cap]:
-    the select before the kernel, as `ivf_search_pallas` ran it) and
-    `library_ms`, `topk_stable` alone over the folded and masked
+    the select before the kernel, as the reference's Pallas path runs it)
+    and `library_ms`, `topk_stable` alone over the folded and masked
     [B, P*cap] scores, made beforehand; the bound: the dots read once,
     the probed buckets' |v|^2 and ids once, the probes, and the [B, c]
     scores and ids written once, at H100_BYTES_PER_S. Raises on
@@ -1193,8 +1094,7 @@ def phase_build():
     from leann_tpu_torch.ops import _cuda
 
     libs = ("fused_beam", "pq_beam", "ivf_bucket_dots", "ivf8_scan",
-            "gather_score", "flat_topk", "ivf_topc", "pq_beam_scan",
-            "ivf_bucket_dots_pairs", "ivf8_scan_pairs", "gather_score_rowwise")
+            "gather_score", "flat_topk", "ivf_topc")
     gpp = {}
 
     def build_native():
@@ -1893,9 +1793,8 @@ def qps_windows(torch, fn, windows):
 
 def phase_ivf(torch, dev, n, counter):
     """BASELINE config 1 / bench.py's IVF config through IvfEngine at
-    nprobe 8: the main path (`search`, what IvfSearcher serves: kernel B4
-    scores the probed buckets, kernel ivf_topc keeps the top-C) and
-    `search_pallas` (the same two kernels, unchunked, outside the spans)."""
+    nprobe 8: `search`, what IvfSearcher serves (on the card kernel B4
+    scores the probed buckets, kernel ivf_topc keeps the top-C)."""
     from leann_tpu_torch.ops.bucket_kernels import ivf_bucket_dots
     from leann_tpu_torch.ops.distance import exact_topk
     from leann_tpu_torch.ops.ivf import IvfEngine, ivf_search
@@ -1916,58 +1815,41 @@ def phase_ivf(torch, dev, n, counter):
         return (ivf_bucket_dots.launches, ivf_topc.launches)
 
     c0, paths0 = kernels(), dict(ivf_search.paths)
-    rec_main = recall_at(eng.search(queries, k=10, nprobe=NPROBE)[0], oracle)
-    c1 = kernels()
-    main_paths = {k: v - paths0[k] for k, v in ivf_search.paths.items()}
-    rec_pallas = recall_at(eng.search_pallas(queries, k=10,
-                                             nprobe=NPROBE)[0], oracle)
-    c2 = kernels()
+    rec = recall_at(eng.search(queries, k=10, nprobe=NPROBE)[0], oracle)
+    launches = [b - a for a, b in zip(c0, kernels())]
+    paths = {k: v - paths0[k] for k, v in ivf_search.paths.items()}
 
     windows = [torch.from_numpy(noisy_rows(corpus, (m, batch), 2000 + w)).to(dev)
                for w in range(3)]
-    out = {}
-    for name, fn in (
-            ("main", lambda q: eng.search_device(q, k=10, nprobe=NPROBE)),
-            ("pallas", lambda q: eng.search_pallas_device(
-                q, k=10, nprobe=NPROBE))):
-        per_batch, qps = qps_windows(torch, fn, windows)
-        out[name] = {"ms_per_batch": per_batch, "qps_windows": qps,
-                     "qps_mean": float(np.mean(qps)),
-                     "profile": profile(torch, lambda: [fn(q) for q in windows[1]])}
-    launches_main = [b - a for a, b in zip(c0, c1)]
-    launches_pallas = [b - a for a, b in zip(c1, c2)]
+    fn = lambda q: eng.search_device(q, k=10, nprobe=NPROBE)
+    per_batch, qps = qps_windows(torch, fn, windows)
     emit({"phase": "ivf", "n": n, "d": d, "n_clusters": IVF_CLUSTERS,
           "buckets": eng.bucket_cent.shape[0], "cap": eng.cap,
           "nprobe": NPROBE, "gen_s": gen_s, "engine_s": engine_s,
-          "queries": nq, "batch": batch, "recall10_main": rec_main,
-          "recall10_pallas": rec_pallas, "launches_main": launches_main,
-          "launches_pallas": launches_pallas, "paths_main": main_paths,
-          **out})
-    if min(rec_main, rec_pallas) < IVF_MIN_RECALL or \
-            abs(rec_main - rec_pallas) > 0.002:
-        raise AssertionError(f"ivf: recall@10 {rec_main} (main) vs "
-                             f"{rec_pallas} (search_pallas)")
-    if min(launches_main + launches_pallas) <= 0 or \
-            main_paths != {"kernel": 1, "torch": 0}:
-        raise AssertionError("ivf: search and search_pallas must launch "
-                             "ivf_bucket_dots and ivf_topc, search once "
-                             f"through ivf_search's kernel path: "
-                             f"{launches_main}, {launches_pallas}, "
-                             f"{main_paths}")
+          "queries": nq, "batch": batch, "recall10": rec,
+          "launches": launches, "paths": paths, "ms_per_batch": per_batch,
+          "qps_windows": qps, "qps_mean": float(np.mean(qps)),
+          "profile": profile(torch, lambda: [fn(q) for q in windows[1]])})
+    if rec < IVF_MIN_RECALL:
+        raise AssertionError(f"ivf: recall@10 {rec}")
+    if min(launches) <= 0 or paths != {"kernel": 1, "torch": 0}:
+        raise AssertionError("ivf: search must launch ivf_bucket_dots and "
+                             "ivf_topc, once through ivf_search's kernel "
+                             f"path: {launches}, {paths}")
     data = {"corpus": corpus, "queries": queries, "oracle": oracle,
-            "centers": eng.centers, "assign": eng.assign,
-            "recall10": rec_main}
+            "centers": eng.centers, "assign": eng.assign, "recall10": rec}
     return eng, windows[0][0], data
 
 
 def phase_ivf8(torch, dev, n, counter):
-    """BASELINE config 2 at full scale through IvfInt8Engine: the kernel
-    path (LEANN_IVF8_PALLAS=1, kernel ivf8_bucket_scores) and the torch
-    scan at nprobe 8, device QPS at the reference's A/B batch (512) and
-    at 2048, and the calibrated nprobe for recall 0.95."""
+    """BASELINE config 2 at full scale through IvfInt8Engine at nprobe 8:
+    `search` (on the card kernel ivf8_bucket_scores) beside the torch
+    scan `ivf8_search` (ShardedIvf8Index's) on the engine's tables,
+    device QPS of `search` at the reference's A/B batch (512) and at
+    2048, and the calibrated nprobe for recall 0.95."""
     from leann_tpu_torch.ops.distance import exact_topk
-    from leann_tpu_torch.ops.ivf import kmeans
-    from leann_tpu_torch.ops.ivf_int8 import IvfInt8Engine
+    from leann_tpu_torch.ops.ivf import kmeans, search_sizes
+    from leann_tpu_torch.ops.ivf_int8 import IvfInt8Engine, ivf8_search
 
     d, nq, m = 96, 1024, 4
     t0 = time.perf_counter()
@@ -1991,34 +1873,36 @@ def phase_ivf8(torch, dev, n, counter):
     pack_s = time.perf_counter() - t0
     _, oracle = exact_topk(queries, corpus, 10, metric="l2", device=dev)
 
-    paths = {"kernel": "1", "torch": None}
     rec, launches = {}, {}
-    for name, flag in paths.items():
-        c0 = counter()
-        with env_var("LEANN_IVF8_PALLAS", flag):
-            rec[name] = recall_at(eng.search(queries, k=10, nprobe=NPROBE)[0],
-                                  oracle)
-        launches[name] = counter() - c0
+    c0 = counter()
+    rec["kernel"] = recall_at(eng.search(queries, k=10, nprobe=NPROBE)[0],
+                              oracle)
+    launches["kernel"] = counter() - c0
+    c0 = counter()
+    k, nprobe, c = search_sizes(eng, 10, NPROBE, 4)
+    scan_ids, _ = ivf8_search(
+        torch.as_tensor(queries, dtype=torch.float32, device=dev),
+        eng.bucket_cent, eng.bucket_ids, eng.payload, eng.scale, eng.nsq,
+        k=k, c=c, nprobe=nprobe, metric=eng.metric, sentinel=eng.n)
+    rec["torch"] = recall_at(scan_ids.cpu().numpy(), oracle)
+    launches["torch"] = counter() - c0
     timing = {}
     batches = {}
+    fn = lambda q: eng.search_device(q, k=10, nprobe=NPROBE)
     for batch in (512, 2048):
         windows = [torch.from_numpy(noisy_rows(
             corpus, (m, batch), 3000 + 10 * batch + w)).to(dev)
             for w in range(3)]
         batches[batch] = windows[0][0]
-        for name, flag in paths.items():
-            with env_var("LEANN_IVF8_PALLAS", flag):
-                fn = lambda q: eng.search_device(q, k=10, nprobe=NPROBE)
-                per_batch, qps = qps_windows(torch, fn, windows)
-                row = {"ms_per_batch": per_batch, "qps_windows": qps,
-                       "qps_mean": float(np.mean(qps))}
-                if batch == 2048:
-                    row["profile"] = profile(
-                        torch, lambda: [fn(q) for q in windows[1]])
-            timing[f"{name}_b{batch}"] = row
+        per_batch, qps = qps_windows(torch, fn, windows)
+        row = {"ms_per_batch": per_batch, "qps_windows": qps,
+               "qps_mean": float(np.mean(qps))}
+        if batch == 2048:
+            row["profile"] = profile(
+                torch, lambda: [fn(q) for q in windows[1]])
+        timing[f"kernel_b{batch}"] = row
     t0 = time.perf_counter()
-    with env_var("LEANN_IVF8_PALLAS", None):
-        cal_nprobe, cal_rec = eng.calibrate_nprobe(0.95)
+    cal_nprobe, cal_rec = eng.calibrate_nprobe(0.95)
     calibrate_s = time.perf_counter() - t0
     emit({"phase": "ivf8", "n": n, "d": d, "n_clusters": IVF8_CLUSTERS,
           "buckets": eng.bucket_cent.shape[0], "cap": eng.cap,
@@ -2035,8 +1919,8 @@ def phase_ivf8(torch, dev, n, counter):
         raise AssertionError(f"ivf8: recall@10 {rec['kernel']} (kernel) vs "
                              f"{rec['torch']} (torch)")
     if launches["torch"] or launches["kernel"] <= 0:
-        raise AssertionError("ivf8: LEANN_IVF8_PALLAS=1 must launch "
-                             "ivf8_bucket_scores and the torch scan must not")
+        raise AssertionError("ivf8: search must launch ivf8_bucket_scores "
+                             "on the card and the torch scan must not")
     if not kmeans_repeat_equal:
         raise AssertionError("ivf8: two k-means runs gave different bits")
     data = {"corpus": corpus, "queries": queries, "oracle": oracle,

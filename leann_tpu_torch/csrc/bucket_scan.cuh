@@ -26,8 +26,8 @@
 //      with Dp = D rounded up to 32 and zeros beyond D: B4 bf16(q); B2
 //      bf16(q) times a power of two 2^e that puts its largest element in
 //      [2^14, 2^15), as fp16 (exact), with 2^-e kept to undo it, and the
-//      centroid term <cent[c], q> in float32, summed in the order of the
-//      earlier design.
+//      centroid term <cent[c], q> in float32 (each lane sums every 32nd
+//      column in order, then a butterfly of shuffles).
 //   2. The rows stream through a ring of kStages tiles of R rows (128 for
 //      B2, 64 for B4) by kc columns (kc from D, so that a stage stays
 //      under kStageBytes; D = 768 takes several column steps per row
@@ -64,34 +64,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// The tiling may be set at build time (-D), as the variant script
-// `evals/bucket_scan_cycles.py` does.
-#ifndef LEANN_BUCKET_ROWS_I8
-#define LEANN_BUCKET_ROWS_I8 128
-#endif
-#ifndef LEANN_BUCKET_ROWS_BF16
-#define LEANN_BUCKET_ROWS_BF16 64
-#endif
-#ifndef LEANN_BUCKET_STAGES
-#define LEANN_BUCKET_STAGES 4
-#endif
-#ifndef LEANN_BUCKET_MIN_CTAS
-#define LEANN_BUCKET_MIN_CTAS 1
-#endif
-
 namespace bucket_scan {
 
 constexpr int kConsumers = 256;   // 8 warps on the products
 constexpr int kThreads = kConsumers + 32;  // and one producer warp
-constexpr int kStages = LEANN_BUCKET_STAGES;  // tiles in the ring
+constexpr int kStages = 4;            // tiles in the ring
 constexpr int kStageBytes = 24576;    // row bytes of one stage, at most
 constexpr int kQueryBytes = 32768;    // staged query bytes, at most
 static_assert(kStages >= 2, "kStages");
 
 template <bool kI8>
 struct Tiling {
-  static constexpr int rows = kI8 ? LEANN_BUCKET_ROWS_I8
-                                  : LEANN_BUCKET_ROWS_BF16;
+  static constexpr int rows = kI8 ? 128 : 64;  // B2 : B4
   static constexpr int mtiles = rows / 16;   // warps on one n-tile's rows
   static constexpr int ngroups = 8 / mtiles; // warps on one m-tile
   static_assert(rows == 32 || rows == 64 || rows == 128, "rows");
@@ -377,7 +361,7 @@ __device__ __forceinline__ void epilogue(const Args& a, unsigned char* smem,
 // NTW: the most n-tiles of 8 queries one consumer warp takes (qmax /
 // (8 * ngroups), at least 1).
 template <bool kI8, int NTW>
-__global__ void __launch_bounds__(kThreads, LEANN_BUCKET_MIN_CTAS)
+__global__ void __launch_bounds__(kThreads, 1)
 scan_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int R = Tiling<kI8>::rows;

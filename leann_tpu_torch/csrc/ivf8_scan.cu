@@ -2,8 +2,8 @@
 //
 // Replaces the TPU kernel `leann_tpu/ops/pallas_kernels.py:167`
 // (`_make_ivf8_kernel`, launched by `ivf8_bucket_scores` :203; the scan of
-// `IvfInt8Engine` under LEANN_IVF8_PALLAS=1). For every (query b, probe
-// j) with bucket c = probe[b, j] and slot r it computes
+// `IvfInt8Engine` on the card). For every (query b, probe j) with bucket
+// c = probe[b, j] and slot r it computes
 //
 //   dots  = <cent[c], q[b]> + scale[c, r] * <bf16(q[b]), payload[c, r]>
 //   score = 2 * dots - nsq[c, r]   (l2)   or   dots   (ip)
@@ -19,9 +19,9 @@
 // ids (12 * cap) and centroid (4 * D) read once, and the output (4 * cap
 // per pair) written once. At ivf8 search (10M x 96, B = 2048, P = 8, cap
 // 2056) some 2.5 queries probe each bucket; a grid of one CTA per (query,
-// probe), the earlier design kept in `ivf8_scan_pairs.cu`, read each
-// bucket once per query, converted every int8 element once per query and
-// kept one 16-byte load per thread in flight.
+// probe), the kernel's earlier design, read each bucket once per query,
+// converted every int8 element once per query and kept one 16-byte load
+// per thread in flight.
 //
 // Design: the bucket-major scan of `bucket_scan.cuh`. One CTA per item of
 // the work list (one bucket, up to 32 of the queries that probe it): a

@@ -2,22 +2,23 @@
 //
 // Replaces the TPU kernel `leann_tpu/ops/pallas_kernels.py:92`
 // (`_bucket_dots_kernel`, launched by `ivf_bucket_dots` :130; the scan of
-// `ivf_search_pallas`, which `IvfEngine.search_pallas` runs). It computes
+// `IvfEngine.search` on the card, through `ops/ivf.py:ivf_search`). It
+// computes
 //
 //   out[j, b, r] = sum_d bf16(q[b, d]) * vecs[probe[b, j], r, d]
 //
 // for q [B, D] f32, probe [B, P] int32 and the bf16 bucket table
 // vecs [K, cap, D], with float32 accumulation; out is [P, B, cap] f32.
-// The caller folds in |v|^2 (l2), masks the sentinel slots and takes the
-// top-k over [B, P*cap].
+// Kernel `ivf_topc` folds in |v|^2 (l2), masks the sentinel slots and
+// takes the top-k over [B, P*cap].
 //
 // Bound. Bytes: each probed bucket's rows (cap * D * 2 bytes) read once,
 // and the output (4 * cap bytes per pair) written once; the products
 // (2 * cap * D per pair) are far below the byte time. At ivf search (1M
 // x 128, B = 2048, P = 8, cap 650) some 7 queries probe each bucket, so a
-// grid of one CTA per (query, probe), the earlier design kept in
-// `ivf_bucket_dots_pairs.cu`, read ~7x the bytes that the bound counts
-// and kept one 16-byte load per thread in flight.
+// grid of one CTA per (query, probe), the kernel's earlier design, read
+// ~7x the bytes that the bound counts and kept one 16-byte load per
+// thread in flight.
 //
 // Design: the bucket-major scan of `bucket_scan.cuh`. One CTA per item of
 // the work list (one bucket, up to 32 of the queries that probe it): a

@@ -3,7 +3,7 @@
 // Replaces no TPU kernel. The reference scores the probed buckets with
 // its bucket kernel (`leann_tpu/ops/pallas_kernels.py:_bucket_dots_kernel`)
 // and keeps the candidates with `jax.lax.top_k` over the flattened scores
-// (`leann_tpu/ops/pallas_kernels.py:ivf_search_pallas`). On the card the
+// (`leann_tpu/ops/pallas_kernels.py:265`). On the card the
 // port's `ivf_search` hands kernel B4's dots to this kernel, which folds,
 // masks and selects as it reads them once. For dots [P, B, cap] float32
 // (query b's probe p at dots[(p * B + b) * cap + slot]), probes [B, P]

@@ -44,33 +44,20 @@ SIGNATURES = {
         "leann_pq_beam_smem_bytes": ([_I32] * 7, ctypes.c_size_t),
         "leann_pq_beam_ctas_per_sm": ([_I32] * 7, _I32),
     },
-    "pq_beam_scan": {
-        "leann_pq_beam_search": ([_PTR] * 10 + [_I32] * 15 + [_PTR], _I32),
-    },
     "ivf_bucket_dots": {
         "leann_ivf_bucket_dots": ([_PTR] * 7 + [_I32] * 8 + [_PTR], _I32),
         "leann_ivf_bucket_dots_ctas_per_sm": ([_I32], _I32),
         "leann_bucket_items": ([_PTR] + [_I32] * 4 + [_PTR] * 3, _I32),
-    },
-    "ivf_bucket_dots_pairs": {
-        "leann_ivf_bucket_dots": ([_PTR] * 4 + [_I32] * 7 + [_PTR], _I32),
     },
     "ivf8_scan": {
         "leann_ivf8_bucket_scores": ([_PTR] * 11 + [_I32] * 9 + [_PTR], _I32),
         "leann_ivf8_bucket_scores_ctas_per_sm": ([_I32], _I32),
         "leann_bucket_items": ([_PTR] + [_I32] * 4 + [_PTR] * 3, _I32),
     },
-    "ivf8_scan_pairs": {
-        "leann_ivf8_bucket_scores": ([_PTR] * 8 + [_I32] * 8 + [_PTR], _I32),
-    },
     "gather_score": {
         "leann_gather_score": (
             [_PTR] * 4 + [ctypes.c_longlong] + [_I32] * 8 + [_PTR], _I32),
         "leann_gather_score_rowwise": (
-            [_PTR] * 4 + [ctypes.c_longlong] + [_I32] * 5 + [_PTR], _I32),
-    },
-    "gather_score_rowwise": {
-        "leann_gather_score": (
             [_PTR] * 4 + [ctypes.c_longlong] + [_I32] * 5 + [_PTR], _I32),
     },
     "flat_topk": {

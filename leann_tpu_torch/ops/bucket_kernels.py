@@ -5,24 +5,23 @@ is named for what it holds).
   ivf_bucket_dots      (B4) bf16 dot products of each query with the
                        rows of its probed buckets, [P, B, cap]; the CUDA
                        kernel `csrc/ivf_bucket_dots.cu` runs on CUDA
-                       tensors. Its callers are `ops/ivf.py:ivf_search` on
-                       the card (what `IvfSearcher` serves) and
-                       `ivf_search_pallas`, which `IvfEngine.search_pallas`
-                       runs; `ops/ivf_topc.py` selects from its dots.
+                       tensors. Its caller is `ops/ivf.py:ivf_search`
+                       (`IvfEngine.search`, what `IvfSearcher` serves);
+                       `ops/ivf_topc.py` selects from its dots.
   ivf8_bucket_scores   (B2) residual-int8 bucket scores (centroid term +
                        scale * int8 dot, l2 fold, -1 slots to -inf),
                        [B, P, cap]; the CUDA kernel `csrc/ivf8_scan.cu`
                        runs on CUDA tensors. Its caller is
-                       `IvfInt8Engine` under LEANN_IVF8_PALLAS=1.
+                       `IvfInt8Engine`'s search on the card.
   bucket_worklist      the work list both kernels take: the (query,
                        probe) pairs grouped by bucket.
 
 Each wrapper runs its plain PyTorch version (`*_plain`) on CPU tensors
-and raises on any other device. The reference's names (`search_pallas`,
-`ivf_search_pallas`, LEANN_IVF8_PALLAS) are kept so that callers and
-tests written for its API pair up. The reference pads cap and D to its
-TPU tiling and needs B % 8 == 0; the kernels here take unpadded
-[K', cap, D] tables and any B, and the plain versions take either.
+and raises on any other device: each kernel has one path on the card
+and its plain twin on the CPU, and the device picks. The reference pads
+cap and D to its TPU tiling and needs B % 8 == 0; the kernels here take
+unpadded [K', cap, D] tables and any B, and the plain versions take
+either.
 
 Both kernels are bucket-major (`csrc/bucket_scan.cuh`): one CTA per item
 of a work list reads its bucket once for up to `qmax` (32) of the
@@ -52,7 +51,7 @@ from typing import Tuple
 
 import torch
 
-from leann_tpu_torch.ops.distance import NEG_INF, pairwise_scores, topk_stable
+from leann_tpu_torch.ops.distance import NEG_INF
 
 # float32 elements per query chunk of a plain version's gathered rows
 _PLAIN_CHUNK = 1 << 26
@@ -238,30 +237,6 @@ def ivf_bucket_dots(
 
 
 ivf_bucket_dots.launches = 0
-
-
-def ivf_search_pallas(
-    queries,           # [B, D] f32
-    centroids,         # [K', D] f32
-    bucket_ids_pad,    # [K', cap] int (pad = sentinel)
-    bucket_vecs_bf16,  # [K', cap, D] bf16
-    bucket_sq_pad,     # [K', cap] f32
-    k: int,
-    nprobe: int,
-    metric: str,
-    sentinel: int,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Centroid GEMM -> top-nprobe -> kernel B4 -> `ivf_topc` (the l2
-    fold, the sentinel mask and one top-k over the flattened [B, P*cap]
-    candidates). Returns (top_scores [B, k], top_ids [B, k] int64, -1 for
-    empty slots)."""
-    from leann_tpu_torch.ops.ivf_topc import ivf_topc
-
-    c_scores = pairwise_scores(queries, centroids, metric)
-    probe = topk_stable(c_scores, nprobe)[1].to(torch.int32)  # [B, P]
-    dots = ivf_bucket_dots(queries, probe, bucket_vecs_bf16)  # [P, B, cap]
-    return ivf_topc(dots, probe, bucket_sq_pad, bucket_ids_pad, k, metric,
-                    sentinel)
 
 
 # ------------------------------------------------------- B2: residual int8

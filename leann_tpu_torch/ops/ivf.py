@@ -9,13 +9,12 @@ Search is three steps of matrix-shaped work:
        their slots; the C survivors are rescored in f32
 
 Step 3 is `ivf_search` (`IvfEngine.search`, what `IvfSearcher` serves; the
-reference left it to XLA outside any kernel). On the card kernel B4
-(`ops/bucket_kernels.py`) scores the probed buckets and kernel `ivf_topc`
-(`ops/ivf_topc.py`) keeps the top-C; on the CPU each probe gathers a
-[B, cap, D] block of bf16 bucket vectors, scores it as a batched product
-and merges a running top-C. `IvfEngine.search_pallas` runs B4 and the
-select unchunked, as the reference's Pallas path does (on the CPU, their
-plain versions). The build is k-means on the device.
+reference left it to XLA outside any kernel), and the tensors' device
+picks its one path. On the card kernel B4 (`ops/bucket_kernels.py`)
+scores the probed buckets and kernel `ivf_topc` (`ops/ivf_topc.py`) keeps
+the top-C; on the CPU each probe gathers a [B, cap, D] block of bf16
+bucket vectors, scores it as a batched product and merges a running
+top-C. The build is k-means on the device.
 
 Bucket layout: vectors are re-packed into [K', cap, D] padded buckets
 (cap ~= 1.3 x mean occupancy); rows beyond cap spill into extra buckets
@@ -233,37 +232,6 @@ class IvfEngine:
         self.bucket_live = (self.bucket_ids != self.n).sum(1)   # [K']
         self._corpus_dev = torch.from_numpy(vectors).to(dev)
 
-    def search_pallas(
-        self, queries, k: int = 10, nprobe: int = 32,
-        rescore_factor: int = 4,
-    ) -> Tuple[np.ndarray, np.ndarray]:
-        """The reference's kernel path: kernel B4 (`ivf_bucket_dots`)
-        scores the probed buckets and `ivf_topc` keeps the top-C over the
-        flattened [B, P*cap] slots, in one call with no spans (on the CPU
-        their plain versions; on the card the kernels `search` also runs);
-        results rescored in f32. Returns numpy (ids, scores)."""
-        ids, scores = self.search_pallas_device(
-            queries, k=k, nprobe=nprobe, rescore_factor=rescore_factor)
-        return ids.cpu().numpy(), scores.cpu().numpy()
-
-    def search_pallas_device(
-        self, queries, k: int = 10, nprobe: int = 32,
-        rescore_factor: int = 4,
-    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """`search_pallas` without the host copy: (ids, scores) on the
-        device. The reference pads cap to a multiple of 128 for its TPU
-        tiling; the CUDA kernel takes the engine's own tables."""
-        from leann_tpu_torch.ops.bucket_kernels import ivf_search_pallas
-
-        q = device_queries(queries, self.device, self.metric_in)
-        k, nprobe, c = search_sizes(self, k, nprobe, rescore_factor)
-        _, cand = ivf_search_pallas(
-            q, self.bucket_cent, self.bucket_ids, self.bucket_vecs_bf16,
-            self.bucket_sq, k=c, nprobe=nprobe, metric=self.metric,
-            sentinel=self.n)
-        scores, ids = _rescore_topk(q, self._corpus_dev, cand, k, self.metric)
-        return ids, scores
-
     def search(
         self, queries, k: int = 10, nprobe: int = 32,
         rescore_factor: int = 4,
@@ -381,14 +349,16 @@ def ivf_search(
     rescore the survivors in f32 (IvfEngine.search). Returns (scores
     [B, k], ids [B, k] int64, -1 for empty slots).
 
-    The device picks the path, and `ivf_search.paths` counts each. CUDA
-    tensors take the kernels (`_kernel_scan`): kernel B4 scores the probed
-    buckets and kernel `ivf_topc` keeps the top-k of its dots. CPU tensors
-    take the plain scan: per probe a gather of the bucket rows, the
-    batched product, the l2 fold and the sentinel mask, and a running
-    top-k (`cat`, `topk_stable`, `gather`). The two return the same top-k
-    of the same dots (`ops/ivf_topc.py`); the dots differ only in the
-    order of their float32 sums.
+    The tensors' device picks the path; nothing else does, and
+    `ivf_search.paths` counts each. CUDA tensors take the kernels
+    (`_kernel_scan`): kernel B4 scores the probed buckets and kernel
+    `ivf_topc` keeps the top-k of its dots. CPU tensors take the plain
+    scan: per probe a gather of the bucket rows, the batched product, the
+    l2 fold and the sentinel mask, and a running top-k (`cat`,
+    `topk_stable`, `gather`). The two return the same top-k of the same
+    dots (`ops/ivf_topc.py`), which is also the top-k of the reference's
+    two scans (its running merge and its Pallas path's one top-k over
+    [B, P*cap]); the dots differ only in the order of their float32 sums.
 
     Device spans: `ivf.probe` (the centroid scores and top-nprobe), then
     `ivf.scan` (B4 with its work list's key sort; on the CPU per probe the
@@ -440,7 +410,8 @@ ivf_search.paths = {"kernel": 0, "torch": 0}
 
 def _kernel_scan(queries, probe, bucket_ids, bucket_vecs, bucket_sq,
                  k: int, metric: str, sentinel: int):
-    """`ivf_search`'s stage 1 on the card: B4's dots [P, b, cap] under
+    """`ivf_search`'s stage 1 on CUDA tensors (on CPU tensors it runs the
+    plain versions of both kernels): B4's dots [P, b, cap] under
     `ivf.scan`, then `ivf_topc` under `ivf.merge`, in chunks of b queries
     whose dots and select buffers stay within `_PLAIN_CHUNK` elements (one
     chunk at the IVF benchmark cell; a search that probes every bucket, as

@@ -9,16 +9,17 @@ its exact f32 |x|^2. Search scores the probed buckets as
 by packed position, and rescores those C exactly from the same payload
 (f32 dequant + centroid add-back), so no second corpus copy exists.
 
-Two scans, as in the reference: `ivf8_search`, a running top-C over the
-probes in plain PyTorch (gather + products, which the reference left to
-XLA), and with LEANN_IVF8_PALLAS=1 `_ivf8_search_pallas_impl`, which
-scores every probed bucket with kernel B2 (`ops/bucket_kernels.py`,
-CUDA on the card) and takes one top-C over [B, P*cap].
+The reference has two scans and a flag between them; here the queries'
+device picks one. On CUDA tensors `_ivf8_search_pallas_impl` scores
+every probed bucket with kernel B2 (`ops/bucket_kernels.py`) and takes
+one top-C over [B, P*cap]; on CPU tensors `ivf8_search` keeps a running
+top-C over the probes in plain PyTorch (gather + products, which the
+reference left to XLA). Their answers differ only by the order of the
+float32 sums (`tests/test_torch_ivf_int8.py` holds them equal).
 """
 
 from __future__ import annotations
 
-import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -121,11 +122,6 @@ class IvfInt8Engine:
             queries, k=k, nprobe=nprobe, rescore_factor=rescore_factor)
         return ids.cpu().numpy(), scores.cpu().numpy()
 
-    def _use_pallas(self) -> bool:
-        """LEANN_IVF8_PALLAS=1 routes the scan through kernel B2, as it
-        routes the reference's through its Pallas kernel."""
-        return os.environ.get("LEANN_IVF8_PALLAS") == "1"
-
     def _pallas_tables(self):
         """Tables of kernel B2 (built once): empty slots carry id -1.
         The reference also pads cap to 32 and D to 128 for its TPU tiling;
@@ -146,7 +142,7 @@ class IvfInt8Engine:
 
     def _search(self, q, k, nprobe, rescore_factor):
         k, nprobe, c = search_sizes(self, k, nprobe, rescore_factor)
-        if self._use_pallas():
+        if q.device.type == "cuda":
             pay, sc, ns, ids, cent, cap_pad, d_pad = self._pallas_tables()
             return _ivf8_search_pallas_impl(
                 q, self.bucket_cent, pay, sc, ns, ids, cent, k=k, c=c,
@@ -211,14 +207,29 @@ def _ivf8_search_pallas_impl(
     queries, bucket_cent, payload, scale, nsq, ids, cent_pad,
     k: int, c: int, nprobe: int, metric: str, cap_pad: int, d_pad: int,
 ):
-    """Kernel-scan variant: every probed bucket is scored by kernel B2
-    (`ivf8_bucket_scores`); candidate positions come from the probe
-    table, so only the top-C rescore gathers rows. Any B: there is no
-    probe table in scalar memory to chunk for. The tables may carry the
-    reference's padding (cap_pad, d_pad); positions are int64. Returns
-    (ids [B, k] int64, -1 where empty, scores [B, k])."""
-    from leann_tpu_torch.ops.bucket_kernels import ivf8_bucket_scores
+    """IvfInt8Engine's scan on CUDA tensors: every probed bucket is scored
+    by kernel B2 (`ivf8_bucket_scores`; on CPU tensors its plain
+    version); candidate positions come from the probe table, so only the
+    top-C rescore gathers rows. Any B, in chunks of queries whose [b, P,
+    cap] scores stay within `_PLAIN_CHUNK` elements (one chunk at the
+    10M x 96 serving shape; a search that probes every bucket, as
+    `calibrate_nprobe`'s oracle does, takes many), so memory stays
+    bounded at any nprobe. The tables may carry the reference's padding
+    (cap_pad, d_pad); positions are int64. Returns (ids [B, k] int64, -1
+    where empty, scores [B, k])."""
+    from leann_tpu_torch.ops.bucket_kernels import (
+        _PLAIN_CHUNK, ivf8_bucket_scores,
+    )
 
+    chunk = max(1, _PLAIN_CHUNK // (nprobe * cap_pad))
+    if queries.shape[0] > chunk:
+        outs = [_ivf8_search_pallas_impl(
+            queries[s : s + chunk], bucket_cent, payload, scale, nsq, ids,
+            cent_pad, k=k, c=c, nprobe=nprobe, metric=metric,
+            cap_pad=cap_pad, d_pad=d_pad)
+            for s in range(0, queries.shape[0], chunk)]
+        return (torch.cat([o[0] for o in outs]),
+                torch.cat([o[1] for o in outs]))
     b, d = queries.shape
     q_pad = queries
     if d != d_pad:

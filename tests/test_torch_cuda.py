@@ -16,8 +16,7 @@ chip_smoke; chip_smoke.phase_kernels(torch, torch.device('cuda'))"`.
 The bucket kernels (B2, B4): -inf positions equal exactly, finite scores
 within 1e-5 x |q| x (largest row norm) (l2: twice that), since their
 plain versions add the same exact products in another order; NaN rows
-exactly at probes outside [0, K); a repeat gives the same bits; the
-same tolerance against their earlier designs (`csrc/*_pairs.cu`). The row
+exactly at probes outside [0, K); a repeat gives the same bits. The row
 gather (B5): within 1e-5 x |q| x (largest row norm), for the same
 reason. The recompute engine (no kernel of its own; the encoder's
 products are library calls) on the card against the CPU and with its
@@ -617,31 +616,6 @@ def test_bucket_kernels_do_not_synchronize(dev, kind):
     torch.cuda.synchronize()
 
 
-@pytest.mark.parametrize("k,cap,d,b,p", GRID)
-def test_bucket_kernels_match_earlier_design(dev, k, cap, d, b, p):
-    """The bucket-major kernels against their earlier designs (one CTA
-    per (query, probe), `csrc/*_pairs.cu`) on the smoke's grid: within
-    the same tolerance as the plain versions."""
-    from leann_tpu_torch.evals.bucket_scan_cycles import earlier
-
-    q, probe, pay, scale, nsq, ids, cent, vecs = _bucket_case(
-        dev, k, cap, d, b, p, seed=d + cap + 2)
-    tol = 1e-5 * float(q.norm(dim=1).max() * vecs.float().norm(dim=2).max())
-    torch.testing.assert_close(
-        tbk.ivf_bucket_dots(q, probe, vecs),
-        earlier(torch, "dots", (q, probe, vecs), "ip"),
-        rtol=0, atol=tol)
-    args = (q, probe, pay, scale, nsq, ids, cent)
-    row = (cent.norm(dim=1)[:, None] + scale * pay.float().norm(dim=2)).max()
-    got = tbk.ivf8_bucket_scores(*args, "l2")
-    old = earlier(torch, "ivf8", args, "l2")
-    assert torch.equal(torch.isneginf(got), torch.isneginf(old))
-    live = torch.isfinite(old)
-    torch.testing.assert_close(
-        got[live], old[live], rtol=0,
-        atol=2e-5 * float(q.norm(dim=1).max() * row))
-
-
 @pytest.mark.parametrize("k,b,p,qmax", [(7479, 2048, 8, 32), (40, 2048, 8, 32),
                                         (9, 31, 5, 16), (3, 1, 1, 8)])
 def test_bucket_items_on_the_card_equal_worklist(dev, k, b, p, qmax):
@@ -691,10 +665,10 @@ def test_kmeans_is_deterministic_on_the_card(dev):
     assert torch.are_deterministic_algorithms_enabled() == was
 
 
-def test_ivf_engines_on_cuda_match_cpu(dev, monkeypatch):
-    """IvfEngine.search_pallas (B4) and IvfInt8Engine under
-    LEANN_IVF8_PALLAS=1 (B2) on the card against the same engines on the
-    CPU (plain versions), same centers."""
+def test_ivf_engines_on_cuda_match_cpu(dev):
+    """IvfEngine.search (B4 and ivf_topc) and IvfInt8Engine.search (B2) on
+    the card against the same engines on the CPU (their plain paths), same
+    centers: the device picks each engine's path."""
     from leann_tpu_torch.ops.ivf import IvfEngine
     from leann_tpu_torch.ops.ivf_int8 import IvfInt8Engine
 
@@ -703,14 +677,12 @@ def test_ivf_engines_on_cuda_match_cpu(dev, monkeypatch):
     x = (c[rng.integers(0, 40, 6000)]
          + rng.standard_normal((6000, 96)).astype(np.float32))
     q = x[rng.integers(0, 6000, 33)] + np.float32(0.05)
-    monkeypatch.setenv("LEANN_IVF8_PALLAS", "1")
     for cls in (IvfEngine, IvfInt8Engine):
         gpu = cls(x, n_clusters=64, metric="l2", device=dev)
         cpu = cls(x, metric="l2", centers=gpu.centers, assign=gpu.assign,
                   device="cpu")
-        search = "search_pallas" if cls is IvfEngine else "search"
-        gi, gs = getattr(gpu, search)(q, k=10, nprobe=8)
-        ci, cs = getattr(cpu, search)(q, k=10, nprobe=8)
+        gi, gs = gpu.search(q, k=10, nprobe=8)
+        ci, cs = cpu.search(q, k=10, nprobe=8)
         overlap = np.mean([len(set(a.tolist()) & set(b.tolist())) / 10
                            for a, b in zip(gi, ci)])
         assert overlap >= 0.99

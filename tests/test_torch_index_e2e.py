@@ -152,12 +152,9 @@ def test_port_imports_no_jax_and_no_reference(tmp_path):
         pq.search(vecs[:1], k=3)
         pqfile.save_pq(base, pq.codebooks, pq.codes, 200, "ip")
         ivf = IvfEngine(vecs, n_clusters=8, device="cpu")
-        ivf.search_pallas(vecs[:2], k=3)
+        ivf.search(vecs[:2], k=3)
         ivffile.IvfFile(ivf.centers, ivf.assign).save(base + ".ivf.npz")
         ivf8 = IvfInt8Engine(vecs, n_clusters=8, device="cpu")
-        ivf8.search(vecs[:2], k=3)
-        import os
-        os.environ["LEANN_IVF8_PALLAS"] = "1"
         ivf8.search(vecs[:2], k=3)
         b = IndexBuilder(base + "2", dim=128, backend="ivf", device="cpu")
         for i, (t, v) in enumerate(zip(texts, vecs)):
@@ -179,6 +176,7 @@ def test_port_imports_no_jax_and_no_reference(tmp_path):
                             device="cpu")
         IvfPqEngine(vecs, n_clusters=8, m=8, ksub=16, device="cpu").search(
             vecs[:2], k=3, nprobe=4)
+        import os
         os.environ["LEANN_IVF_ENGINE"] = "pq"
         res = IndexSearcher.load(base + "2", device="cpu").search(vecs[:2])
         assert res[0][0].id == "d0", res[0][0].id

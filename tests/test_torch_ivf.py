@@ -106,9 +106,11 @@ def test_bucket_dots_plain_matches_pallas(k, cap, d, b, p):
 
 @pytest.mark.parametrize("metric", ["l2", "ip", "cosine"])
 def test_engine_search_matches_reference(metric):
-    """IvfEngine.search (torch scan) and search_pallas (kernel B4's path)
-    against the reference's search and its Pallas path in interpret
-    mode, on the same centers (the reference's k-means)."""
+    """IvfEngine.search (on the CPU the plain scan and running top-C)
+    against the reference's search and against its Pallas path in
+    interpret mode, on the same centers (the reference's k-means): both
+    of the reference's paths keep the exact top-C of the same bf16 dots,
+    so the port's one path is held to each."""
     x = clustered(1200, 128, 16, seed=2)
     ref = jivf.IvfEngine(x, n_clusters=16, metric=metric, cap=64)
     eng = tivf.IvfEngine(x, n_clusters=16, metric=metric, cap=64,
@@ -121,28 +123,35 @@ def test_engine_search_matches_reference(metric):
     xm = x / np.linalg.norm(x, axis=1, keepdims=True) if metric == "cosine" else x
     qm = q / np.linalg.norm(q, axis=1, keepdims=True) if metric == "cosine" else q
     rows = separable_rows(qm, xm, "ip" if metric == "cosine" else metric)
-    assert_search_equal(eng.search(q, k=10, nprobe=8),
-                        ref.search(q, k=10, nprobe=8), rows)
     launches = tbk.ivf_bucket_dots.launches
-    assert_search_equal(eng.search_pallas(q, k=10, nprobe=8),
-                        ref.search_pallas(q, k=10, nprobe=8, interpret=True),
-                        rows)
-    assert tbk.ivf_bucket_dots.launches == launches   # CPU: the plain version
+    got = eng.search(q, k=10, nprobe=8)
+    assert tbk.ivf_bucket_dots.launches == launches   # CPU: no kernel
+    assert_search_equal(got, ref.search(q, k=10, nprobe=8), rows)
+    assert_search_equal(got, ref.search_pallas(q, k=10, nprobe=8,
+                                               interpret=True), rows)
 
 
-def test_ivf_search_pallas_odd_batch_and_empty_slots():
-    """Any B (the reference needs B % 8 == 0), and sentinel slots that
-    never come back: a tiny corpus whose buckets are mostly empty."""
+def test_kernel_scan_odd_batch_and_empty_slots():
+    """The card's stage 1 (`_kernel_scan`: B4, then `ivf_topc`, here their
+    plain versions) against `ivf_search`'s CPU path: any B (the reference
+    needs B % 8 == 0), and sentinel slots that never come back: a tiny
+    corpus whose buckets are mostly empty."""
+    from leann_tpu_torch.ops.distance import pairwise_scores, topk_stable
+
     x = clustered(90, 24, 4, seed=4)
     eng = tivf.IvfEngine(x, n_clusters=6, metric="l2", cap=32, device="cpu")
-    q = x[:5] + 0.01
-    ids, scores = eng.search_pallas(q, k=40, nprobe=2)
-    i2, s2 = eng.search(q, k=40, nprobe=2)
-    np.testing.assert_array_equal(ids, i2)
-    np.testing.assert_allclose(scores, s2, rtol=1e-6)
-    assert (ids[:, 0] == np.arange(5)).all()
-    assert ((ids == -1) == ~np.isfinite(scores)).all()
-    assert ((ids >= 0) | (ids == -1)).all() and (ids < len(x)).all()
+    q = torch.from_numpy(x[:5] + np.float32(0.01))
+    args = (eng.bucket_ids, eng.bucket_vecs_bf16, eng.bucket_sq)
+    probe = topk_stable(pairwise_scores(q, eng.bucket_cent, "l2"), 2)[1]
+    scores, ids = tivf._kernel_scan(q, probe, *args, 40, "l2", eng.n)
+    want = tivf.ivf_search(q, eng.bucket_cent, *args, k=40, nprobe=2,
+                           metric="l2", sentinel=eng.n)
+    assert torch.equal(ids, want[1]) and torch.equal(scores, want[0])
+    assert (ids == -1).any()
+    assert torch.equal(ids == -1, ~torch.isfinite(scores))
+    assert (((ids >= 0) | (ids == -1)) & (ids < eng.n)).all()
+    got, _ = eng.search(q, k=40, nprobe=2)
+    assert (got[:, 0] == np.arange(5)).all()
 
 
 def test_ivf_no_vector_dropped_by_overflow():
@@ -155,9 +164,6 @@ def test_ivf_no_vector_dropped_by_overflow():
     assert eng.bucket_cent.shape[0] == ref.bucket_cent.shape[0] > 4
     for i in (0, 123, 499):
         idx, _ = eng.search(x[i], k=1, nprobe=eng.bucket_cent.shape[0])
-        assert idx[0, 0] == i
-        idx, _ = eng.search_pallas(x[i], k=1,
-                                   nprobe=eng.bucket_cent.shape[0])
         assert idx[0, 0] == i
 
 

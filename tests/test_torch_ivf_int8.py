@@ -9,10 +9,12 @@ Tolerances:
   1e-5 x |q| x (largest |c| + scale * |r8| of the bucket rows), for l2
   twice that (the int8 x bf16 products are exact in float32, the sums run
   in another order);
-- engine searches with LEANN_IVF8_PALLAS unset and set to 1: ids equal
-  row for row wherever the reference's 10th and 11th exact scores differ
-  by more than 1e-4, scores within rtol 1e-5 (atol 1e-4 near zero);
-  calibrated nprobe equal."""
+- engine searches, on both of the engine's paths (on the CPU
+  `IvfInt8Engine.search`, the running top-C; the card's path,
+  `_ivf8_search_pallas_impl` with kernel B2's plain version, called on
+  the engine's own tables): ids equal row for row wherever the
+  reference's 10th and 11th exact scores differ by more than 1e-4, scores
+  within rtol 1e-5 (atol 1e-4 near zero); calibrated nprobe equal."""
 
 import numpy as np
 import pytest
@@ -22,6 +24,7 @@ from leann_tpu.ops import ivf_int8 as jiv8
 from leann_tpu.ops.distance import exact_topk as jexact_topk
 from leann_tpu_torch.ops import bucket_kernels as tbk
 from leann_tpu_torch.ops import ivf_int8 as tiv8
+from leann_tpu_torch.ops.ivf import device_queries, search_sizes
 
 torch.set_num_threads(1)
 
@@ -92,6 +95,18 @@ def test_bucket_scores_plain_matches_pallas(metric):
     np.testing.assert_allclose(got[live], want[live], rtol=0, atol=tol)
 
 
+def _kernel_path(eng, q, k=10, nprobe=8, rescore_factor=4):
+    """IvfInt8Engine's stage 1 on the card (`_ivf8_search_pallas_impl` on
+    the engine's `_pallas_tables()`), run with CPU tensors: kernel B2's
+    plain version. Returns (ids, scores)."""
+    k, nprobe, c = search_sizes(eng, k, nprobe, rescore_factor)
+    pay, sc, ns, ids, cent, cap, d = eng._pallas_tables()
+    return tiv8._ivf8_search_pallas_impl(
+        device_queries(q, eng.device, eng.metric_in), eng.bucket_cent, pay,
+        sc, ns, ids, cent, k=k, c=c, nprobe=nprobe, metric=eng.metric,
+        cap_pad=cap, d_pad=d)
+
+
 def _separable(q, x, metric, k=10):
     sc = np.asarray(jexact_topk(q, x, k + 1, metric=metric)[0])
     return np.abs(sc[:, k - 1] - sc[:, k]) > 1e-4
@@ -109,10 +124,11 @@ def _assert_equal(got, want, rows):
 
 @pytest.mark.parametrize("pallas", [False, True])
 @pytest.mark.parametrize("metric", ["l2", "ip"])
-def test_engine_search_matches_reference(monkeypatch, metric, pallas):
-    """IvfInt8Engine.search with LEANN_IVF8_PALLAS unset (the torch scan)
-    and set to 1 (kernel B2's path) against the reference's scan and its
-    Pallas path in interpret mode, on the same centers."""
+def test_engine_search_matches_reference(metric, pallas):
+    """IvfInt8Engine.search (the CPU's running top-C) against the
+    reference's scan, and the engine's path on the card (kernel B2's, here
+    its plain version) against the reference's Pallas path in interpret
+    mode, on the same centers."""
     x = clustered(seed=3)
     ref = jiv8.IvfInt8Engine(x, n_clusters=24, metric=metric, seed=0)
     eng = tiv8.IvfInt8Engine(x, metric=metric, centers=np.asarray(ref.centers),
@@ -128,20 +144,19 @@ def test_engine_search_matches_reference(monkeypatch, metric, pallas):
             jnp.asarray(q), ref.bucket_cent, pay, sc, ns, ids, cent, k=10,
             c=40, nprobe=8, metric=metric, cap_pad=cap_pad, d_pad=d_pad,
             interpret=True)
-        monkeypatch.setenv("LEANN_IVF8_PALLAS", "1")
     else:
-        monkeypatch.delenv("LEANN_IVF8_PALLAS", raising=False)
         want = ref.search(q, k=10, nprobe=8, rescore_factor=4)
     launches = tbk.ivf8_bucket_scores.launches
-    got = eng.search(q, k=10, nprobe=8, rescore_factor=4)
+    got = (_kernel_path(eng, q) if pallas
+           else eng.search(q, k=10, nprobe=8, rescore_factor=4))
     assert tbk.ivf8_bucket_scores.launches == launches   # CPU: plain version
     _assert_equal(got, want, _separable(q, x, metric))
 
 
-def test_kernel_path_equals_scan_on_padded_and_unpadded_tables(monkeypatch):
+def test_kernel_path_equals_scan_on_padded_and_unpadded_tables():
     """_ivf8_search_pallas_impl on the reference's padded tables (cap to
     32, D to 128) returns what it returns on the port's unpadded ones,
-    and what the torch scan returns."""
+    and what the engine's CPU path, the running top-C, returns."""
     x = clustered(n=1500, d=40, k=16, seed=5)
     ref = jiv8.IvfInt8Engine(x, n_clusters=16, metric="l2", seed=0)
     eng = tiv8.IvfInt8Engine(x, metric="l2", centers=np.asarray(ref.centers),
@@ -152,9 +167,7 @@ def test_kernel_path_equals_scan_on_padded_and_unpadded_tables(monkeypatch):
         q, eng.bucket_cent, *(torch.from_numpy(t) for t in
                               (pay, sc, ns, ids, cent)),
         k=10, c=40, nprobe=6, metric="l2", cap_pad=cap_pad, d_pad=d_pad)
-    monkeypatch.setenv("LEANN_IVF8_PALLAS", "1")
-    unpadded = eng.search_device(q, k=10, nprobe=6)
-    monkeypatch.delenv("LEANN_IVF8_PALLAS")
+    unpadded = _kernel_path(eng, q, k=10, nprobe=6)
     scan = eng.search_device(q, k=10, nprobe=6)
     for a, b in ((padded, unpadded), (unpadded, scan)):
         assert torch.equal(a[0], b[0])
@@ -162,7 +175,7 @@ def test_kernel_path_equals_scan_on_padded_and_unpadded_tables(monkeypatch):
     assert (unpadded[0][:, 0] == torch.arange(6)).all()
 
 
-def test_ivf8_no_vector_dropped_by_overflow(monkeypatch):
+def test_ivf8_no_vector_dropped_by_overflow():
     rng = np.random.default_rng(11)
     x = rng.standard_normal((400, 16)).astype(np.float32) * 0.01
     eng = tiv8.IvfInt8Engine(x, n_clusters=4, metric="l2", cap=32,
@@ -170,18 +183,34 @@ def test_ivf8_no_vector_dropped_by_overflow(monkeypatch):
     ref = jiv8.IvfInt8Engine(x, n_clusters=4, metric="l2", cap=32)
     assert eng.bucket_cent.shape[0] == ref.bucket_cent.shape[0] > 4
     kp = eng.bucket_cent.shape[0]
-    for flag in ("0", "1"):
-        monkeypatch.setenv("LEANN_IVF8_PALLAS", flag)
-        for i in (0, 201, 399):
-            idx, _ = eng.search(x[i], k=1, nprobe=kp)
-            assert idx[0, 0] == i
+    for i in (0, 201, 399):
+        idx, _ = eng.search(x[i], k=1, nprobe=kp)
+        assert idx[0, 0] == i
+        idx, _ = _kernel_path(eng, x[i], k=1, nprobe=kp)
+        assert idx[0, 0] == i
 
 
-@pytest.mark.parametrize("flag", ["0", "1"])
-def test_ivf8_search_many_device_matches_single(monkeypatch, flag):
-    monkeypatch.setenv("LEANN_IVF8_PALLAS", flag)
-    x = clustered(n=2000, d=32, k=16, seed=5)
+@pytest.mark.parametrize("budget", [1, 2, 5])
+def test_kernel_path_in_query_chunks_equals_one_chunk(monkeypatch, budget):
+    """The card's path in chunks of `budget` queries (the [b, P, cap]
+    scores bounded by `_PLAIN_CHUNK`) returns what one chunk returns: the
+    same ids, and scores but for the order of the rescore's float32 sums,
+    which the CPU's batched product picks by batch size."""
+    x = clustered(n=1500, d=24, k=16, seed=8)
     eng = tiv8.IvfInt8Engine(x, n_clusters=16, metric="l2", device="cpu")
+    q = x[np.random.default_rng(9).integers(0, len(x), 11)] + np.float32(
+        0.05)
+    whole = _kernel_path(eng, q, k=10, nprobe=5)
+    monkeypatch.setattr(tbk, "_PLAIN_CHUNK", budget * 5 * eng.cap)
+    parts = _kernel_path(eng, q, k=10, nprobe=5)
+    assert torch.equal(parts[0], whole[0])
+    torch.testing.assert_close(parts[1], whole[1], rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_ivf8_search_many_device_matches_single(metric):
+    x = clustered(n=2000, d=32, k=16, seed=5)
+    eng = tiv8.IvfInt8Engine(x, n_clusters=16, metric=metric, device="cpu")
     qs = torch.from_numpy(x[np.random.default_rng(6).integers(
         0, len(x), (2, 7))])
     ids_m, sc_m = eng.search_many_device(qs, k=5, nprobe=8)
