@@ -1791,6 +1791,54 @@ def qps_windows(torch, fn, windows):
     return per_batch, [b / (t / 1e3) for t in per_batch]
 
 
+IVF_CALL_BATCHES = 8    # the IVF benchmark cell's batches a call
+
+
+def ivf_graphs(torch, dev, eng, corpus, batch):
+    """`IvfEngine.search_many_device` at the IVF cell's shape (8 batches
+    of `batch` a call): the first call eager, the second captures the
+    shape's CUDA graphs, later calls replay. Whether the replayed answers
+    equal the eager call's and `search_device`'s batch by batch, bit for
+    bit; the wall ms a batch of the graph path and of `search_device`
+    (the eager path) over the same three calls, each ended by a sync;
+    the calls' paths."""
+    from leann_tpu_torch.ops.ivf import IvfEngine
+
+    many = IvfEngine.search_many_device
+    paths0 = dict(many.paths)
+    calls = [torch.from_numpy(noisy_rows(
+        corpus, (IVF_CALL_BATCHES, batch), 2100 + w)).to(dev)
+        for w in range(3)]
+    kw = {"k": 10, "nprobe": NPROBE}
+    eager = eng.search_many_device(calls[0], **kw)
+    eng.search_many_device(calls[0], **kw)
+    replay = eng.search_many_device(calls[0], **kw)
+    one = [eng.search_device(q, **kw) for q in calls[0]]
+
+    def same(a, b):
+        return bool(torch.equal(a[0], b[0]) and torch.equal(
+            a[1].view(torch.int32), b[1].view(torch.int32)))
+
+    equal = same(eager, replay) and same(replay, (
+        torch.stack([o[0] for o in one]), torch.stack([o[1] for o in one])))
+
+    def wall_ms(fn):
+        out = []
+        for w in calls:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(w)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3 / IVF_CALL_BATCHES)
+        return out
+
+    graph_ms = wall_ms(lambda w: eng.search_many_device(w, **kw))
+    eager_ms = wall_ms(lambda w: [eng.search_device(q, **kw) for q in w])
+    return {"equal": equal, "graph_wall_ms_per_batch": graph_ms,
+            "eager_wall_ms_per_batch": eager_ms,
+            "paths": {k: v - paths0[k] for k, v in many.paths.items()}}
+
+
 def phase_ivf(torch, dev, n, counter):
     """BASELINE config 1 / bench.py's IVF config through IvfEngine at
     nprobe 8: `search`, what IvfSearcher serves (on the card kernel B4
@@ -1823,12 +1871,14 @@ def phase_ivf(torch, dev, n, counter):
                for w in range(3)]
     fn = lambda q: eng.search_device(q, k=10, nprobe=NPROBE)
     per_batch, qps = qps_windows(torch, fn, windows)
+    graphs = ivf_graphs(torch, dev, eng, corpus, batch)
     emit({"phase": "ivf", "n": n, "d": d, "n_clusters": IVF_CLUSTERS,
           "buckets": eng.bucket_cent.shape[0], "cap": eng.cap,
           "nprobe": NPROBE, "gen_s": gen_s, "engine_s": engine_s,
           "queries": nq, "batch": batch, "recall10": rec,
           "launches": launches, "paths": paths, "ms_per_batch": per_batch,
           "qps_windows": qps, "qps_mean": float(np.mean(qps)),
+          "graphs": graphs,
           "profile": profile(torch, lambda: [fn(q) for q in windows[1]])})
     if rec < IVF_MIN_RECALL:
         raise AssertionError(f"ivf: recall@10 {rec}")
@@ -1836,6 +1886,10 @@ def phase_ivf(torch, dev, n, counter):
         raise AssertionError("ivf: search must launch ivf_bucket_dots and "
                              "ivf_topc, once through ivf_search's kernel "
                              f"path: {launches}, {paths}")
+    if not graphs["equal"] or graphs["paths"] != {
+            "eager": IVF_CALL_BATCHES, "capture": 1,
+            "replay": IVF_CALL_BATCHES * 5 - 1}:
+        raise AssertionError(f"ivf: the graph path: {graphs}")
     data = {"corpus": corpus, "queries": queries, "oracle": oracle,
             "centers": eng.centers, "assign": eng.assign, "recall10": rec}
     return eng, windows[0][0], data

@@ -14,13 +14,15 @@ time: the CPU tests import every module on a machine without nvcc.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Sequence
+from typing import Callable, Dict, List, Sequence
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -29,6 +31,7 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _COUNT_LOCK = threading.Lock()
+_DEFERRED = threading.local()
 
 _PTR, _I32 = ctypes.c_void_p, ctypes.c_int
 # (argtypes, restype) of each library's exported functions; every library
@@ -142,6 +145,8 @@ def count_launch(wrapper, path: str = None, **totals) -> None:
     wrapper that chooses between two kernels) under a lock: the HTTP
     server's flush pool launches kernels from two threads at once.
     `totals` are added as `count_work` adds them."""
+    if _deferred(count_launch, wrapper, path, **totals):
+        return
     with _COUNT_LOCK:
         wrapper.launches += 1
         if path is not None:
@@ -149,10 +154,40 @@ def count_launch(wrapper, path: str = None, **totals) -> None:
         _add(wrapper, totals)
 
 
+@contextlib.contextmanager
+def deferred_counts():
+    """Keep what `count_launch`, `count_path` and `count_work` count in
+    this thread's block aside, in the list it yields, instead of adding
+    it: work captured into a CUDA graph runs only when the graph replays,
+    and each replay adds the list (`add_counts`)."""
+    _DEFERRED.counts = counts = []
+    try:
+        yield counts
+    finally:
+        _DEFERRED.counts = None
+
+
+def _deferred(count, *args, **kw) -> bool:
+    """Whether a `deferred_counts` block of this thread kept the count."""
+    counts = getattr(_DEFERRED, "counts", None)
+    if counts is None:
+        return False
+    counts.append(functools.partial(count, *args, **kw))
+    return True
+
+
+def add_counts(counts: List[Callable[[], None]]) -> None:
+    """Count what a `deferred_counts` block kept aside."""
+    for count in counts:
+        count()
+
+
 def count_path(wrapper, path: str) -> None:
     """Add one to `wrapper.paths[path]` alone, under the launch counter's
     lock: a call that took a path with no kernel, which `launches` leaves
     out."""
+    if _deferred(count_path, wrapper, path):
+        return
     with _COUNT_LOCK:
         wrapper.paths[path] += 1
 
@@ -163,6 +198,8 @@ def count_work(wrapper, **totals) -> None:
     lock. A tensor is added on the device, with no sync: the total
     becomes a tensor on the device of its first tensor amount, read
     (`int(...)`) only by whoever reads it."""
+    if _deferred(count_work, wrapper, **totals):
+        return
     with _COUNT_LOCK:
         _add(wrapper, totals)
 

@@ -24,7 +24,9 @@ centroid scoring probes them (a duplicated centroid scores identically).
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -169,6 +171,11 @@ def device_queries(queries, device, metric_in) -> torch.Tensor:
     return q
 
 
+# batch shapes whose CUDA graphs an engine keeps, the least recently used
+# dropped first (`IvfEngine.search_many_device`)
+_GRAPH_SHAPES = 4
+
+
 def search_sizes(engine, k, nprobe, rescore_factor) -> Tuple[int, int, int]:
     """(k, nprobe, candidates to rescore) of an IVF engine's search,
     clamped to its corpus and bucket counts."""
@@ -231,6 +238,10 @@ class IvfEngine:
         del bucket_vecs
         self.bucket_live = (self.bucket_ids != self.n).sum(1)   # [K']
         self._corpus_dev = torch.from_numpy(vectors).to(dev)
+        # batch shape -> its `_BatchGraphs`, or None once seen in one call
+        self._graphs = collections.OrderedDict()
+        self._graph_lock = threading.Lock()
+        self._capture_stream = None
 
     def search(
         self, queries, k: int = 10, nprobe: int = 32,
@@ -260,9 +271,8 @@ class IvfEngine:
             self.bucket_sq, k=c, nprobe=nprobe, metric=self.metric,
             sentinel=self.n, bucket_live=self.bucket_live,
         )
-        with device_span("ivf.rescore"):
-            scores, ids = _rescore_topk(q, self._corpus_dev, cand, k,
-                                        self.metric)
+        scores, ids = _stage("ivf.rescore", lambda: _rescore_topk(
+            q, self._corpus_dev, cand, k, self.metric))
         return ids, scores
 
     def search_many_device(
@@ -273,14 +283,73 @@ class IvfEngine:
         queries go in as they are, as in the reference: a cosine engine's
         scores then carry |q|.
 
+        How a batch is launched depends on what the call sees. CUDA
+        queries of a batch shape seen in an earlier call, whose scan is
+        one query chunk, replay that shape's CUDA graphs (`_BatchGraphs`:
+        `_search` captured, so the same launches and bits); the shape's
+        first call runs eagerly, the second captures, and no capture
+        happens while tracing is on. An engine keeps `_GRAPH_SHAPES`
+        shapes, the least recently used dropped first with its memory
+        pool. CPU queries, and every other call, run each batch eagerly
+        (`_search`).
+        `search_many_device.paths` counts batches by path (`eager`,
+        `capture`, `replay`); while tracing, `traced_batches` and
+        `traced_replays` count the batches and those that replayed.
+
         Device spans: `ivf.search_many` around the call; per batch
-        `ivf_search`'s (`ivf.probe`, then `ivf.scan` and `ivf.merge` per
-        probe) and `ivf.rescore` (`_rescore_topk`)."""
+        `ivf_search`'s (`ivf.probe`, then `ivf.scan` and `ivf.merge`) and
+        `ivf.rescore` (`_rescore_topk`), around a replay the span its
+        graph was captured from."""
+        many = IvfEngine.search_many_device
+        traced = tracing()
+        m, b = qs.shape[0], qs.shape[1]
+        k, nprobe, c = search_sizes(self, k, nprobe, rescore_factor)
         with device_span("ivf.search_many"):
-            outs = [self._search(q.to(torch.float32), k, nprobe,
-                                 rescore_factor) for q in qs]
-            return (torch.stack([o[0] for o in outs]),
-                    torch.stack([o[1] for o in outs]))
+            ids = torch.empty((m, b, k), dtype=torch.int64, device=self.device)
+            scores = torch.empty((m, b, k), dtype=torch.float32,
+                                 device=self.device)
+            graphs, path = self._graphs_for(qs, k, nprobe, rescore_factor,
+                                            c, traced)
+            for i, q in enumerate(qs):
+                if graphs is None:
+                    ids[i], scores[i] = self._search(q.to(torch.float32), k,
+                                                     nprobe, rescore_factor)
+                else:
+                    with self._graph_lock:
+                        graphs.run(q, ids[i], scores[i])
+                _cuda.count_path(many, path)
+                if traced:
+                    _cuda.count_work(many, traced_batches=1,
+                                     traced_replays=int(path == "replay"))
+                if path == "capture":
+                    path = "replay"
+            return ids, scores
+
+    def _graphs_for(self, qs, k, nprobe, rescore_factor, c, traced):
+        """(the `_BatchGraphs` of the batch shape of `qs`, or None, and the
+        path of the call's first batch): CUDA queries whose scan is one
+        query chunk, on the shape's second sighting or later and, for a
+        capture, with tracing off; the capture warms up on `qs[0]`."""
+        m, b = qs.shape[0], qs.shape[1]
+        if not qs.is_cuda or m == 0 or b == 0 or \
+                b > _scan_chunk(nprobe, self.cap, c):
+            return None, "eager"
+        key = (tuple(qs.shape[1:]), qs.dtype, k, nprobe, c)
+        with self._graph_lock:
+            if key not in self._graphs:
+                self._graphs[key] = None
+                while len(self._graphs) > _GRAPH_SHAPES:
+                    self._graphs.popitem(last=False)
+                return None, "eager"
+            self._graphs.move_to_end(key)
+            graphs = self._graphs[key]
+            if graphs is not None:
+                return graphs, "replay"
+            if traced:
+                return None, "eager"
+            graphs = self._graphs[key] = _BatchGraphs(self, qs[0], k, nprobe,
+                                                      rescore_factor)
+            return graphs, "capture"
 
     def calibrate_nprobe(
         self,
@@ -300,6 +369,96 @@ class IvfEngine:
         return calibrate_nprobe_ladder(
             self, base.cpu().numpy(), idx, target_recall=target_recall, k=k,
             ladder=ladder, seed=seed)
+
+
+IvfEngine.search_many_device.paths = {"eager": 0, "capture": 0, "replay": 0}
+IvfEngine.search_many_device.traced_batches = 0
+IvfEngine.search_many_device.traced_replays = 0
+
+
+_CAPTURE = threading.local()
+
+
+def _stage(name: str, fn):
+    """`fn()` under the device span `name`; inside this thread's
+    `_BatchGraphs` capture, `fn` captured into that span's graph."""
+    graphs = getattr(_CAPTURE, "graphs", None)
+    if graphs is not None:
+        return graphs.stage(name, fn)
+    with device_span(name):
+        return fn()
+
+
+class _BatchGraphs:
+    """One batch shape's work on a CUDA engine as CUDA graphs, one per
+    span of `_search` (`ivf.probe`, `ivf.scan`, `ivf.merge`,
+    `ivf.rescore` for a batch whose scan is one query chunk, as every
+    device op of such a batch lies in one of them), captured in order
+    into one private memory pool and replayed in that order: `_search`
+    itself is captured, so a replay makes its launches and gives its
+    bits. A batch's queries are copied into `q`; its answers are read
+    from `ids` and `scores`.
+
+    The capture runs on the engine's capture stream after one eager
+    `_search` there on the first batch, so lazy set-up (cuBLAS's
+    workspace for the stream, `ivf_topc`'s shared-memory query) happens
+    outside it. The warm-up's counts are dropped; those the capture made
+    (`_cuda.deferred_counts`) are added at each replay. The native
+    launchers allocate nothing, do not synchronise and read nothing
+    back."""
+
+    def __init__(self, eng: IvfEngine, first: torch.Tensor, k: int,
+                 nprobe: int, rescore_factor: int):
+        dev = eng.device
+        self.bucket_live = eng.bucket_live
+        self.q = torch.empty(first.shape, dtype=torch.float32, device=dev)
+        self.q.copy_(first)
+        self.graphs = []      # (span, graph), in capture order
+        self._pool = torch.cuda.graph_pool_handle()
+        if eng._capture_stream is None:
+            eng._capture_stream = torch.cuda.Stream(dev)
+        stream = eng._capture_stream
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            with _cuda.deferred_counts():
+                eng._search(self.q, k, nprobe, rescore_factor)
+            _CAPTURE.graphs = self
+            try:
+                with _cuda.deferred_counts() as self.counts:
+                    self.ids, self.scores = eng._search(self.q, k, nprobe,
+                                                        rescore_factor)
+            finally:
+                _CAPTURE.graphs = None
+        torch.cuda.current_stream(dev).wait_stream(stream)
+
+    def stage(self, name: str, fn):
+        """Capture `fn`'s launches into a graph for span `name`."""
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin(pool=self._pool, capture_error_mode="thread_local")
+        try:
+            out = fn()
+        finally:
+            graph.capture_end()
+        self.graphs.append((name, graph))
+        if name == "ivf.probe":
+            self.probe = out
+        return out
+
+    def run(self, q: torch.Tensor, ids: torch.Tensor,
+            scores: torch.Tensor) -> None:
+        """One batch: `q` [B, D] in, its answers written into `ids` and
+        `scores` [B, k]; each graph replayed under its span, the probed
+        rows counted after the probe while tracing (as `ivf_search` counts
+        them), and the capture's counts added."""
+        self.q.copy_(q)
+        for name, graph in self.graphs:
+            with device_span(name):
+                graph.replay()
+            if name == "ivf.probe":
+                _count_rows(self.probe, self.bucket_live)
+        _cuda.add_counts(self.counts)
+        ids.copy_(self.ids)
+        scores.copy_(self.scores)
 
 
 def calibrate_nprobe_ladder(
@@ -371,12 +530,10 @@ def ivf_search(
     no sync."""
     b = queries.shape[0]
     dev = queries.device
-    with device_span("ivf.probe"):
-        c_scores = pairwise_scores(queries, centroids, metric)
-        _, probe = topk_stable(c_scores, nprobe)             # [B, P]
-    if bucket_live is not None and tracing():
-        _cuda.count_work(ivf_search, rows=bucket_live[probe].sum(),
-                         traced_queries=b)
+    probe = _stage("ivf.probe", lambda: topk_stable(
+        pairwise_scores(queries, centroids, metric), nprobe)[1])   # [B, P]
+    if bucket_live is not None:
+        _count_rows(probe, bucket_live)
     if dev.type == "cuda":
         _cuda.count_path(ivf_search, "kernel")
         return _kernel_scan(queries, probe, bucket_ids, bucket_vecs,
@@ -408,6 +565,33 @@ ivf_search.traced_queries = 0
 ivf_search.paths = {"kernel": 0, "torch": 0}
 
 
+def _count_rows(probe, bucket_live) -> None:
+    """While tracing, add the live rows of the probed buckets (summed on
+    the device) to `ivf_search.rows` and the queries to
+    `ivf_search.traced_queries`."""
+    if tracing():
+        _cuda.count_work(ivf_search, rows=bucket_live[probe].sum(),
+                         traced_queries=probe.shape[0])
+
+
+def _scan_chunk(nprobe: int, cap: int, k: int) -> int:
+    """Queries a chunk of `_kernel_scan`: their dots and select buffers
+    stay within `_PLAIN_CHUNK` elements."""
+    from leann_tpu_torch.ops.bucket_kernels import _PLAIN_CHUNK
+    from leann_tpu_torch.ops.ivf_topc import buffers
+
+    return max(1, _PLAIN_CHUNK // (nprobe * cap + buffers(k)[1]))
+
+
+def _scan_dots(queries, probe, bucket_vecs):
+    """(the probes as int32, B4's dots [P, b, cap] of `queries` over
+    them)."""
+    from leann_tpu_torch.ops.bucket_kernels import ivf_bucket_dots
+
+    pr = probe.to(torch.int32)
+    return pr, ivf_bucket_dots(queries, pr, bucket_vecs)
+
+
 def _kernel_scan(queries, probe, bucket_ids, bucket_vecs, bucket_sq,
                  k: int, metric: str, sentinel: int):
     """`ivf_search`'s stage 1 on CUDA tensors (on CPU tensors it runs the
@@ -418,22 +602,16 @@ def _kernel_scan(queries, probe, bucket_ids, bucket_vecs, bucket_sq,
     `calibrate_nprobe`'s oracle does, takes several). One query's dots are
     smaller than the bucket table, so memory stays bounded at any
     nprobe."""
-    from leann_tpu_torch.ops.bucket_kernels import (
-        _PLAIN_CHUNK, ivf_bucket_dots,
-    )
-    from leann_tpu_torch.ops.ivf_topc import buffers, ivf_topc
+    from leann_tpu_torch.ops.ivf_topc import ivf_topc
 
     b, nprobe = probe.shape
-    per_query = nprobe * bucket_ids.shape[1] + buffers(k)[1]
-    chunk = max(1, _PLAIN_CHUNK // per_query)
+    chunk = _scan_chunk(nprobe, bucket_ids.shape[1], k)
     parts = []
     for s in range(0, b, chunk):
-        with device_span("ivf.scan"):
-            pr = probe[s : s + chunk].to(torch.int32)
-            dots = ivf_bucket_dots(queries[s : s + chunk], pr, bucket_vecs)
-        with device_span("ivf.merge"):
-            parts.append(ivf_topc(dots, pr, bucket_sq, bucket_ids, k, metric,
-                                  sentinel))
+        pr, dots = _stage("ivf.scan", lambda: _scan_dots(
+            queries[s : s + chunk], probe[s : s + chunk], bucket_vecs))
+        parts.append(_stage("ivf.merge", lambda: ivf_topc(
+            dots, pr, bucket_sq, bucket_ids, k, metric, sentinel)))
         del dots
     if len(parts) == 1:
         return parts[0]

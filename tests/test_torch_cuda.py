@@ -22,16 +22,23 @@ reason. The recompute engine (no kernel of its own; the encoder's
 products are library calls) on the card against the CPU and with its
 dedup cache on against off: the tolerances in each test's docstring.
 Sharded graphs (`parallel/sharded.py`, four shards on one card): B1 and
-B3 equal their plain versions exactly on each shard's arguments."""
+B3 equal their plain versions exactly on each shard's arguments.
+`IvfEngine.search_many_device`'s CUDA graphs (one per span, replayed
+from a batch shape's second call): ids and score bits equal to the eager
+path's, captured only while untraced, the least recently used shape
+freed, the counters moved as an eager batch moves them, and two threads
+served their own answers."""
 
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from leann_tpu_torch.ops import bucket_kernels as tbk
 from leann_tpu_torch.ops import fused_beam as tf
 from leann_tpu_torch.ops import gather_score as tgs
 from leann_tpu_torch.ops import pq_beam as tp
+from leann_tpu_torch.ops.distance import pairwise_scores
 from leann_tpu_torch.ops.vamana import build_vamana
 
 pytestmark = pytest.mark.cuda
@@ -688,6 +695,217 @@ def test_ivf_engines_on_cuda_match_cpu(dev):
         assert overlap >= 0.99
         same = gi == ci
         np.testing.assert_allclose(gs[same], cs[same], rtol=1e-5, atol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def ivf_graph_data():
+    """A 20,000 x 128 mixture, its k-means (150 lists) on the CPU, and
+    query batches of the IVF cell's width: near-rows of the corpus."""
+    from leann_tpu_torch.ops.ivf import kmeans
+
+    rng = np.random.default_rng(25)
+    c = rng.standard_normal((64, 128)).astype(np.float32) * 3
+    x = (c[rng.integers(0, 64, 20000)]
+         + rng.standard_normal((20000, 128)).astype(np.float32))
+    qs = {b: torch.from_numpy(
+        x[rng.integers(0, 20000, 3 * b)].reshape(3, b, 128)
+        + 0.1 * rng.standard_normal((3, b, 128)).astype(np.float32))
+        for b in (2048, 777)}
+    return x, qs, {m: kmeans(x, 150, metric=m, device="cpu")
+                   for m in ("l2", "ip")}
+
+
+def _ivf_engine(data, metric, device):
+    from leann_tpu_torch.ops.ivf import IvfEngine
+
+    x, _, km = data
+    centers, assign = km[metric]
+    return IvfEngine(x, metric=metric, centers=centers, assign=assign,
+                     device=device)
+
+
+def _many_paths():
+    from leann_tpu_torch.ops.ivf import IvfEngine
+
+    return dict(IvfEngine.search_many_device.paths)
+
+
+def _equal_bits(a, b):
+    assert torch.equal(a[0], b[0])
+    assert torch.equal(a[1].view(torch.int32), b[1].view(torch.int32))
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_ivf_batch_graphs_equal_the_eager_path(dev, ivf_graph_data, metric):
+    """`IvfEngine.search_many_device` over three calls of two shapes (B =
+    2048 and 777): the first call eager, the second captures on its first
+    batch, the rest replay; ids and score bits equal to the eager call's
+    and to `search_device` batch by batch; ids equal to the CPU engine's
+    on 99% of the rows whose 10th and 11th exact scores stand apart by
+    more than 1e-5 of the scale of their float32 terms (2|q||x| + |x|^2,
+    or |q||x| for ip), as the two sum in other orders (a near tie of two
+    centre scores can move a probe)."""
+    x, qs, _ = ivf_graph_data
+    card = _ivf_engine(ivf_graph_data, metric, dev)
+    cpu = _ivf_engine(ivf_graph_data, metric, "cpu")
+    kw = dict(k=10, nprobe=8, rescore_factor=4)
+    wants = {b: cpu.search_many_device(q, **kw) for b, q in qs.items()}
+    paths = _many_paths()
+    xm = torch.from_numpy(x).double()
+    for b, q in qs.items():
+        qd = q.to(dev)
+        calls = [card.search_many_device(qd, **kw) for _ in range(3)]
+        one = [card.search_device(batch, **kw) for batch in qd]
+        for got in calls[1:]:
+            _equal_bits(got, calls[0])
+        _equal_bits(calls[0], (torch.stack([o[0] for o in one]),
+                               torch.stack([o[1] for o in one])))
+        want = wants[b]
+        qm = q.reshape(-1, 128).double()
+        top = torch.topk(pairwise_scores(qm, xm, metric), 11, dim=1).values
+        xmax = float(xm.norm(dim=1).max())
+        scale = qm.norm(dim=1) * xmax * (2 if metric == "l2" else 1)
+        if metric == "l2":
+            scale = scale + xmax * xmax
+        rows = (top[:, 9] - top[:, 10]).abs() > 1e-5 * scale
+        assert rows.float().mean() >= 0.5
+        same = (calls[0][0].reshape(-1, 10).cpu()[rows]
+                == want[0].reshape(-1, 10)[rows]).all(1).float().mean()
+        assert same >= 0.99, (b, float(same))
+    got = {k: v - paths[k] for k, v in _many_paths().items()}
+    assert got == {"eager": 6, "capture": 2, "replay": 10}
+
+
+def test_ivf_batch_graphs_capture_only_untraced(dev, ivf_graph_data):
+    """A shape seen only under the profiler stays eager; the next untraced
+    call captures, and a traced call after it replays (`traced_batches`,
+    `traced_replays`)."""
+    from leann_tpu_torch.ops.ivf import IvfEngine
+
+    many = IvfEngine.search_many_device
+    _, qs, _ = ivf_graph_data
+    eng = _ivf_engine(ivf_graph_data, "l2", dev)
+    qd = qs[777].to(dev)
+    paths = _many_paths()
+    traced0 = (many.traced_batches, many.traced_replays)
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU]):
+            eng.search_many_device(qd, k=10, nprobe=8)
+    assert _many_paths()["capture"] == paths["capture"]
+    assert (many.traced_batches - traced0[0],
+            many.traced_replays - traced0[1]) == (6, 0)
+    eng.search_many_device(qd, k=10, nprobe=8)
+    assert _many_paths()["capture"] == paths["capture"] + 1
+    with profile(activities=[ProfilerActivity.CPU]):
+        eng.search_many_device(qd, k=10, nprobe=8)
+    assert (many.traced_batches - traced0[0],
+            many.traced_replays - traced0[1]) == (9, 3)
+    got = {k: v - paths[k] for k, v in _many_paths().items()}
+    assert got == {"eager": 6, "capture": 1, "replay": 5}
+
+
+def test_ivf_batch_graphs_least_recently_used_freed(dev, ivf_graph_data):
+    """Past `_GRAPH_SHAPES` shapes the least recently used goes, with its
+    graphs and their memory pool; seen again, it is a first sighting."""
+    import gc
+    import weakref
+
+    from leann_tpu_torch.ops import ivf
+
+    _, qs, _ = ivf_graph_data
+    eng = _ivf_engine(ivf_graph_data, "l2", dev)
+    qd = qs[2048].to(dev)
+
+    def reserved():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved(dev)
+
+    for _ in range(2):
+        eng.search_many_device(qd, k=10, nprobe=8)
+    (key, graphs), = eng._graphs.items()
+    ref = weakref.ref(graphs)
+    del graphs
+    held = reserved()
+    for b in range(1, ivf._GRAPH_SHAPES + 1):      # first sightings
+        eng.search_many_device(qd[:, :b], k=10, nprobe=8)
+    assert key not in eng._graphs and len(eng._graphs) == ivf._GRAPH_SHAPES
+    assert ref() is None
+    # the pool held at least the rescore's [2048, 40, 128] float32 rows
+    assert reserved() <= held - (32 << 20)
+    paths = _many_paths()
+    eng.search_many_device(qd, k=10, nprobe=8)
+    assert _many_paths()["eager"] == paths["eager"] + 3
+
+
+def test_ivf_batch_graph_counts_equal_eager(dev, ivf_graph_data):
+    """A replayed call adds to `ivf_search.rows` (under the profiler),
+    `ivf_search.paths["kernel"]`, `ivf_topc.launches` and
+    `ivf_bucket_dots.launches` what an eager call adds."""
+    from leann_tpu_torch.ops import ivf, ivf_topc
+
+    _, qs, _ = ivf_graph_data
+    eng = _ivf_engine(ivf_graph_data, "l2", dev)
+    qd = qs[2048].to(dev)
+
+    def counted(traced=True):
+        before = (int(ivf.ivf_search.rows), ivf.ivf_search.traced_queries,
+                  ivf.ivf_search.paths["kernel"], ivf_topc.ivf_topc.launches,
+                  tbk.ivf_bucket_dots.launches)
+        if traced:
+            with profile(activities=[ProfilerActivity.CPU]):
+                eng.search_many_device(qd, k=10, nprobe=8)
+        else:
+            eng.search_many_device(qd, k=10, nprobe=8)
+        after = (int(ivf.ivf_search.rows), ivf.ivf_search.traced_queries,
+                 ivf.ivf_search.paths["kernel"], ivf_topc.ivf_topc.launches,
+                 tbk.ivf_bucket_dots.launches)
+        return [a - b for a, b in zip(after, before)]
+
+    paths = _many_paths()
+    eager = counted()                      # a first sighting: eager
+    capture = counted(traced=False)
+    replay = counted()
+    got = {k: v - paths[k] for k, v in _many_paths().items()}
+    assert got == {"eager": 3, "capture": 1, "replay": 5}
+    assert eager[0] > 0 and eager[1:] == [2048 * 3, 3, 3, 3]
+    assert replay == eager
+    assert capture == [0, 0, 3, 3, 3]
+
+
+def test_ivf_batch_graphs_from_two_threads(dev, ivf_graph_data):
+    """Two threads calling one engine's captured shape, each on its own
+    queries, get their own answers."""
+    import sys
+    import threading
+
+    _, qs, _ = ivf_graph_data
+    eng = _ivf_engine(ivf_graph_data, "ip", dev)
+    mine = [qs[777].to(dev), qs[777].flip(0).to(dev).contiguous()]
+    # the first call is eager, the second captures the shape
+    want = [eng.search_many_device(q, k=10, nprobe=8) for q in mine]
+    bad = []
+
+    def drive(i):
+        for _ in range(20):
+            got = eng.search_many_device(mine[i], k=10, nprobe=8)
+            if not (torch.equal(got[0], want[i][0])
+                    and torch.equal(got[1], want[i][1])):
+                bad.append(i)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=drive, args=(i,)) for i in (0, 1)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert not bad
 
 
 @pytest.mark.parametrize("n,b,d,r", [

@@ -1,6 +1,6 @@
 """The benchmark's IVF cell (`mixture1m-ivf-b2048`: driver
 `benchmark/drivers/ivf_search.py`, the plain IVF reference, the stage-1
-bound and the eight per-layer readers) cut to a tiny copy on the CPU.
+bound and the nine per-layer readers) cut to a tiny copy on the CPU.
 
 The tiny cell keeps the real traffic's keys and rate metric at 3000 x 32
 with 24 lists and nprobe 4; its mixture is looser than the real one
@@ -99,7 +99,7 @@ def test_the_tiny_cell_is_correct(tmp_path, metric):
 def test_every_reader_loads_and_reads_nothing_without_a_profile(tmp_path):
     root = make_root(tmp_path)
     _, layer = _real()
-    assert len(layer) == 8
+    assert len(layer) == 9
     bench = run.load_bench(root)
     assert [m["name"] for m in run.metrics_of(bench, "per_layer", TINY)] \
         == [m["name"] for m in layer]

@@ -152,6 +152,25 @@ def test_rows_counted_only_while_tracing(data, engines, totals):
     assert int(totals.rows) == live
 
 
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_cpu_batches_never_capture(data, engines, metric):
+    """A CPU engine's `search_many_device` runs every batch eagerly, call
+    after call of one shape (its path counter shows only `eager`), with
+    the answers of `search_device` batch by batch."""
+    _, qs = data
+    eng = engines[metric]
+    many = ivf.IvfEngine.search_many_device
+    paths = dict(many.paths)
+    want = [eng.search_device(q, k=10, nprobe=NPROBE) for q in qs]
+    for _ in range(3):
+        ids, sc = eng.search_many_device(qs, k=10, nprobe=NPROBE)
+        assert torch.equal(ids, torch.stack([w[0] for w in want]))
+        assert torch.equal(sc, torch.stack([w[1] for w in want]))
+    got = {k: v - paths[k] for k, v in many.paths.items()}
+    assert got == {"eager": 3 * qs.shape[0], "capture": 0, "replay": 0}
+    assert not eng._graphs
+
+
 @pytest.mark.parametrize("cap", [None, 16])
 def test_the_two_plain_references_agree(data, engines, cap):
     x, qs = data

@@ -221,6 +221,30 @@ def test_buffers_stay_in_shared_memory_while_they_fit(c, resident):
         assert ld * 8 + it.HIST_BYTES <= limit
 
 
+def test_deferred_counts_are_added_at_each_replay():
+    """What `_cuda.count_launch`, `count_path` and `count_work` count
+    inside a `deferred_counts` block (a CUDA graph's capture) is kept
+    aside, and `add_counts` adds it each time (each replay)."""
+    from leann_tpu_torch.ops import _cuda
+
+    def wrapper():
+        pass
+
+    wrapper.launches, wrapper.paths, wrapper.rows = 0, {"kernel": 0}, 0
+    with _cuda.deferred_counts() as counts:
+        _cuda.count_launch(wrapper, rows=5)
+        _cuda.count_path(wrapper, "kernel")
+        _cuda.count_work(wrapper, rows=torch.tensor(2))
+    assert (wrapper.launches, wrapper.paths, wrapper.rows) == (
+        0, {"kernel": 0}, 0)
+    for _ in range(2):
+        _cuda.add_counts(counts)
+    assert (wrapper.launches, wrapper.paths, int(wrapper.rows)) == (
+        2, {"kernel": 2}, 14)
+    _cuda.count_launch(wrapper)
+    assert wrapper.launches == 3
+
+
 # ---------------------------------------------------------------- card
 
 @pytest.fixture(scope="module")
