@@ -16,7 +16,7 @@ Two engines:
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -52,6 +52,24 @@ class GraphRecomputeSearcher:
             encoder, metric=self.meta.metric, device=device,
         )
 
+    def search_many(
+        self,
+        query_vectors: np.ndarray,
+        top_k: int = 10,
+        complexity: int = 32,
+        *,
+        fetch_k: Optional[int] = None,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """One batched traversal of query embeddings [B, D] (or [D]) at
+        beam max(complexity, top_k). Returns (row ids [B, k] int64, -1
+        where the beam ran out; scores [B, k] float32), best first, with
+        k = min(fetch_k or top_k, N): `search` fetches more rows than it
+        keeps under a filter."""
+        return self.engine.search(
+            query_vectors, k=min(fetch_k or top_k, len(self.ids)),
+            beam_width=max(complexity, top_k),
+        )
+
     def search(
         self,
         query_vector: np.ndarray,
@@ -60,10 +78,8 @@ class GraphRecomputeSearcher:
         filter: Optional[MetadataFilter] = None,
     ) -> List[SearchResult]:
         fetch_k = top_k * 5 if filter is not None else top_k
-        idx, scores = self.engine.search(
-            query_vector, k=min(fetch_k, len(self.ids)),
-            beam_width=max(complexity, top_k),
-        )
+        idx, scores = self.search_many(query_vector, top_k, complexity,
+                                       fetch_k=fetch_k)
         out: List[SearchResult] = []
         for i, s in zip(idx[0], scores[0]):
             if i < 0 or i >= len(self.ids):

@@ -27,7 +27,9 @@ import torch
 
 from leann_tpu_torch.device import DeviceLike, free_device_bytes, resolve_device
 from leann_tpu_torch.models.bert import _bucket_batch, bert_forward
+from leann_tpu_torch.ops import _cuda
 from leann_tpu_torch.ops.distance import topk_stable
+from leann_tpu_torch.utils.trace import device_span, tracing
 
 NEG_INF = float("-inf")
 HASH_MULT = 2654435761  # Knuth multiplicative hash (uint32)
@@ -376,6 +378,15 @@ def _rescore(queries, corpus, corpus_nsq, cand, n_sentinel, metric, k_out,
 # traversal loop, on the same device. `stats` (a dict, optional) counts
 # per search: hops, candidate slots, encoder rows (padding included) and,
 # with the dedup cache, the rows that missed it.
+#
+# Device spans (`utils.trace.device_span`, open only while a profiler
+# records): `recompute.entry` (the seed-pool product and its top-k),
+# per hop `recompute.dedup` (the cache's sort, masks and compaction with
+# its read to the host), `recompute.encode` (the forwards and cache
+# writes) and `recompute.score` (the gather and product); the engine's
+# `recompute.search_many` holds the whole search. While tracing, each
+# search adds its `stats` to the engine's class totals `encoded_rows`,
+# `misses`, `hops` and `traced_queries`.
 
 RECOMPUTE_CHUNK = 4096  # rows per forward on the plain path
 ENC_CHUNK = 2048        # rows per forward of the dedup cache's misses
@@ -423,9 +434,12 @@ def _recompute_fns(token_ids, attn_mask, adjacency, bert_params, metric,
 
     def score_fn(q, ids):
         b, k = ids.shape
-        toks = token_ids[ids].reshape(b * k, -1)
-        mask = attn_mask[ids].reshape(b * k, -1)
-        return _scores(_encode(toks, mask).reshape(b, k, -1), q, metric)
+        with device_span("recompute.encode"):
+            toks = token_ids[ids].reshape(b * k, -1)
+            mask = attn_mask[ids].reshape(b * k, -1)
+            emb = _encode(toks, mask).reshape(b, k, -1)
+        with device_span("recompute.score"):
+            return _scores(emb, q, metric)
 
     def expand_fn(q, u):
         nbrs = adjacency[u].reshape(q.shape[0], -1)
@@ -446,6 +460,17 @@ def _recompute_cache_init(n_rows, d, seed_ids, seed_vecs, device):
         vecs[seed_ids] = seed_vecs.float()
         valid[seed_ids] = True
     return vecs, valid
+
+
+def _encode_chunks(cache_vecs, cache_valid, buf, chunks, token_ids,
+                   attn_mask, bert_params, config) -> None:
+    """Encode the rows `buf[start:start + size]` of each (start, size) of
+    `chunks`, one forward a chunk, into the cache, and mark them valid."""
+    for start, size in chunks:
+        rows = buf[start : start + size]
+        cache_vecs[rows] = bert_forward(
+            bert_params, token_ids[rows], attn_mask[rows], config).float()
+        cache_valid[rows] = True
 
 
 def _recompute_cached_fns(token_ids, attn_mask, adjacency, bert_params,
@@ -471,30 +496,32 @@ def _recompute_cached_fns(token_ids, attn_mask, adjacency, bert_params,
     def expand_fn(q, u, aux):
         cache_vecs, cache_valid = aux
         nbrs = adjacency[u].reshape(q.shape[0], -1)            # [B, C]
-        sorted_ids = torch.sort(nbrs.reshape(-1)).values
-        first = torch.ones_like(sorted_ids, dtype=torch.bool)
-        first[1:] = sorted_ids[1:] != sorted_ids[:-1]
-        miss = first & ~cache_valid[sorted_ids] & (sorted_ids != n_sentinel)
-        misses = sorted_ids[miss]                   # one read to the host
-        m = misses.shape[0]
-        n_big = m // c_big
-        n_small = -(-(m - n_big * c_big) // c_small)
-        spans = ([(i * c_big, c_big) for i in range(n_big)]
-                 + [(n_big * c_big + i * c_small, c_small)
-                    for i in range(n_small)])
-        buf = torch.full((n_big * c_big + n_small * c_small,), n_sentinel,
-                         dtype=misses.dtype, device=misses.device)
-        buf[:m] = misses
-        for start, size in spans:
-            rows = buf[start : start + size]
-            cache_vecs[rows] = bert_forward(
-                bert_params, token_ids[rows], attn_mask[rows],
-                config).float()
-            cache_valid[rows] = True
+        with device_span("recompute.dedup"):
+            sorted_ids = torch.sort(nbrs.reshape(-1)).values
+            first = torch.ones_like(sorted_ids, dtype=torch.bool)
+            first[1:] = sorted_ids[1:] != sorted_ids[:-1]
+            miss = (first & ~cache_valid[sorted_ids]
+                    & (sorted_ids != n_sentinel))
+            misses = sorted_ids[miss]               # one read to the host
+            m = misses.shape[0]
+            n_big = m // c_big
+            n_small = -(-(m - n_big * c_big) // c_small)
+            chunks = ([(i * c_big, c_big) for i in range(n_big)]
+                      + [(n_big * c_big + i * c_small, c_small)
+                         for i in range(n_small)])
+            buf = torch.full((n_big * c_big + n_small * c_small,),
+                             n_sentinel, dtype=misses.dtype,
+                             device=misses.device)
+            buf[:m] = misses
+        with device_span("recompute.encode"):
+            _encode_chunks(cache_vecs, cache_valid, buf, chunks, token_ids,
+                           attn_mask, bert_params, config)
         _count(stats, hops=1, slots=nbrs.numel(), misses=m,
                encoded_rows=buf.numel())
-        emb = cache_vecs[nbrs].float()                         # [B, C, D]
-        return nbrs, _scores(emb, q, metric), (cache_vecs, cache_valid)
+        with device_span("recompute.score"):
+            emb = cache_vecs[nbrs].float()                     # [B, C, D]
+            scores = _scores(emb, q, metric)
+        return nbrs, scores, (cache_vecs, cache_valid)
 
     return n_sentinel, expand_fn
 
@@ -540,9 +567,10 @@ def _recompute_traverse(queries, token_ids, attn_mask, adjacency,
                 queries.device)
     entry_sc = None
     if state is None:
-        entry, entry_sc = _recompute_entry(
-            queries, entry, seed_ids, seed_vecs, metric, n_entries,
-            beam_width)
+        with device_span("recompute.entry"):
+            entry, entry_sc = _recompute_entry(
+                queries, entry, seed_ids, seed_vecs, metric, n_entries,
+                beam_width)
     return _beam_search_core(
         queries, adjacency.shape[1], entry, exclude, expand_fn, score_fn,
         n_sentinel, beam_width, max_iters, hash_bits, expansions,
@@ -842,7 +870,19 @@ class RecomputeBeamEngine:
     (LEANN_RECOMPUTE_SEGMENT; 0, one pass: the reference's TPU default of
     8 works around a relay limit the card does not have) per search.
     `last_stats` holds the counts of the last search (hops, slots,
-    encoder rows, and misses with dedup)."""
+    encoder rows, and misses with dedup).
+
+    While a profiler records, each search adds `last_stats` to the class
+    totals (under `_cuda.count_work`'s lock): `encoded_rows` (rows the
+    encoder ran, chunk padding included), `misses` (distinct rows not
+    cached; without the cache every candidate slot), `hops` (hops of a
+    batch) and `traced_queries`. `search` runs in the device span
+    `recompute.search_many`."""
+
+    encoded_rows = 0
+    misses = 0
+    hops = 0
+    traced_queries = 0
 
     def __init__(
         self,
@@ -920,7 +960,7 @@ class RecomputeBeamEngine:
         fn = (beam_search_recompute_segmented if segment_iters
               else beam_search_recompute_batch)
         self.last_stats = {}
-        with torch.no_grad():
+        with device_span("recompute.search_many"), torch.no_grad():
             ids, scores = fn(
                 torch.from_numpy(q).to(self.device),
                 self.token_ids, self.attn_mask, self.adjacency,
@@ -935,7 +975,13 @@ class RecomputeBeamEngine:
                 use_cache=dedup, enc_chunk=enc_chunk,
                 stats=self.last_stats, **kw,
             )
-        k = min(k, ids.shape[1])
-        idx = ids[:, :k].cpu().numpy()
-        sc = scores[:, :k].cpu().numpy()
+            k = min(k, ids.shape[1])
+            idx = ids[:, :k].cpu().numpy()
+            sc = scores[:, :k].cpu().numpy()
+        if tracing():
+            st = self.last_stats
+            _cuda.count_work(
+                RecomputeBeamEngine, encoded_rows=st.get("encoded_rows", 0),
+                misses=st.get("misses", st.get("slots", 0)),
+                hops=st.get("hops", 0), traced_queries=b)
         return np.where(idx == self.n, -1, idx), sc

@@ -20,7 +20,9 @@ exactly at probes outside [0, K); a repeat gives the same bits. The row
 gather (B5): within 1e-5 x |q| x (largest row norm), for the same
 reason. The recompute engine (no kernel of its own; the encoder's
 products are library calls) on the card against the CPU and with its
-dedup cache on against off: the tolerances in each test's docstring.
+dedup cache on against off, and `GraphRecomputeSearcher.search_many` at
+bert-base widths against the benchmark's plain reference with its spans
+charged: the tolerances in each test's docstring.
 Sharded graphs (`parallel/sharded.py`, four shards on one card): B1 and
 B3 equal their plain versions exactly on each shard's arguments.
 `IvfEngine.search_many_device`'s CUDA graphs (one per span, replayed
@@ -1088,6 +1090,94 @@ def test_recompute_dedup_on_cuda_matches_uncached(dev, recompute_setup):
     np.testing.assert_allclose(cs, us, rtol=0, atol=1e-3)
     for a, b in zip(out[True, 0], out[True, 4]):
         np.testing.assert_array_equal(a, b)
+
+
+def test_recompute_search_many_on_the_card_matches_the_reference(
+        dev, tmp_path):
+    """`GraphRecomputeSearcher.search_many` at bert-base widths (T=48) on a
+    pruned 5,000-passage index built on the card, 256 of its passages'
+    texts as queries at beam 64, against the benchmark's plain reference
+    (`benchmark/reference/recompute.py`): the mean gap of the returned
+    scores from the reference's within the recompute cell's limit 9.3e-5
+    (two sound sum orders at 12 bf16 layers part by ~8e-5 a score on
+    average), recall@10 against the reference's exact top-10 at least
+    0.85 and the query's own passage first for at least 98% of the
+    queries (the traversal is approximate: 255 of 256 on the first card
+    run). Under the profiler the five
+    recompute spans are recorded and all device time under
+    `recompute.search_many` is charged to a span (at least 95%)."""
+    import json
+
+    from benchmark import spans
+    from benchmark.reference import exact
+    from benchmark.reference import recompute as ref
+    from leann_tpu_torch.embed import LocalEmbedding
+    from leann_tpu_torch.index import (GraphRecomputeSearcher,
+                                       StreamingIndexBuilder)
+    from leann_tpu_torch.models import bert
+    from leann_tpu_torch.store.embeddings import prune_embeddings
+    from leann_tpu_torch.store.meta import IndexMeta, meta_path
+    from leann_tpu_torch.store.passages import Passage
+
+    n = 5000
+    texts = [f"passage {i} about subject {i % 911} topic {i % 101} "
+             f"facet {i % 37} keyword{i % 7} detail {i}"
+             for i in range(7, 7 + 97 * n, 97)]
+    enc = bert.BertEncoder(bert.BertConfig(), max_length=48, seed=0,
+                           device=dev)
+    base = str(tmp_path / "documents.leann")
+    builder = StreamingIndexBuilder(
+        base, dim=768, backend="hnsw", metric="ip",
+        embedding_model="bert-base (random weights, seed 0)",
+        embedding_mode="local", is_recompute=True, tokenizer_encoder=enc,
+        device=dev)
+    builder.add_batch([Passage(id=f"p{i}", text=t) for i, t in
+                       enumerate(texts)],
+                      LocalEmbedding(encoder=enc, batch_size=512).embed(texts))
+    builder.build(graph_degree=32, complexity=48)
+    prune_embeddings(base)
+    meta = IndexMeta.load(meta_path(base))
+    meta.is_pruned = True
+    meta.save(meta_path(base))
+    searcher = GraphRecomputeSearcher(base, enc, device=dev)
+    rows = np.random.default_rng(26).choice(n, 256, replace=False)
+    q = LocalEmbedding(encoder=enc).embed([texts[i] for i in rows])
+    searcher.search_many(q, top_k=10, complexity=64)           # warm
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ids, scores = searcher.search_many(q, top_k=10, complexity=64)
+
+    cfg = {"vocab_size": 30522, "hidden_size": 768, "num_layers": 12,
+           "num_heads": 12, "intermediate_size": 3072,
+           "max_position_embeddings": 512, "type_vocab_size": 2,
+           "layer_norm_eps": 1e-12}
+    w = ref.init_weights(cfg, 0, dev)
+    corpus = ref.embed(w, cfg, texts, 48, dev)
+    queries = ref.embed(w, cfg, [texts[i] for i in rows], 48, dev)
+    ids_t = torch.from_numpy(ids).to(dev)
+    want, scale = exact.scores_of(queries, corpus, ids_t, "ip")
+    gap = ((torch.from_numpy(scores).to(dev).double() - want).abs()
+           / scale).mean()
+    assert float(gap) <= 9.3e-5, float(gap)
+    top, _ = exact.topk(queries, corpus, 10, "ip")
+    recall = float((ids_t[:, :, None] == top[:, None, :]).any(1)
+                   .float().mean())
+    assert recall >= 0.85, recall
+    assert float(np.mean(ids[:, 0] == rows)) >= 0.98
+
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    timed = [e for e in events if "ts" in e and "dur" in e]
+    start = min(e["ts"] for e in timed) / 1e6
+    end = max(e["ts"] + e["dur"] for e in timed) / 1e6
+    sp = spans.charge(events, start, end)
+    names = {"recompute.search_many", "recompute.entry", "recompute.dedup",
+             "recompute.encode", "recompute.score"}
+    assert names <= sp.names
+    assert sp.charged_share("recompute.search_many") >= 0.95
+    assert sp.under_s["recompute.encode"] > 0.5 * sp.under_s[
+        "recompute.search_many"]
 
 
 @pytest.fixture(scope="module")

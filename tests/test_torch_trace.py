@@ -267,3 +267,80 @@ def test_ivf_engine_spans_nest_as_called(corpus, tmp_path):
     assert all(_inside(a, outer[0]) for a in got)
     for a, b in zip(got, got[1:]):
         assert a[2] <= b[1]
+
+
+@pytest.fixture(scope="module")
+def recompute_engine():
+    """A recompute engine over 300 tiny-encoder passages (a seed pool of
+    32, so hops miss the cache) and 6 of the passages' own vectors."""
+    from leann_tpu_torch.models import bert
+    from leann_tpu_torch.ops.beam import RecomputeBeamEngine
+    from leann_tpu_torch.ops.vamana import build_vamana
+
+    texts = [f"doc {i} topic {i % 17} shade {i % 5}" for i in range(300)]
+    enc = bert.BertEncoder(config=bert.BertConfig.tiny(), device="cpu")
+    vecs = enc.embed(texts)
+    tok, mask = enc.tokenize_corpus(texts, max_length=16)
+    adj, medoid = build_vamana(vecs, graph_degree=12, complexity=24,
+                               metric="ip", wave_size=64, device="cpu")
+    engine = RecomputeBeamEngine(tok, mask, adj, medoid, enc, seed_pool=32,
+                                 device="cpu")
+    return engine, vecs[[3, 40, 99, 150, 201, 288]]
+
+
+RECOMPUTE_COUNTERS = ("encoded_rows", "misses", "hops", "traced_queries")
+
+
+@pytest.fixture()
+def recompute_totals():
+    """The recompute engine's class totals set to zero for the test,
+    restored after it."""
+    from leann_tpu_torch.ops.beam import RecomputeBeamEngine
+
+    saved = {c: getattr(RecomputeBeamEngine, c) for c in RECOMPUTE_COUNTERS}
+    for c in RECOMPUTE_COUNTERS:
+        setattr(RecomputeBeamEngine, c, 0)
+    yield RecomputeBeamEngine
+    for c, v in saved.items():
+        setattr(RecomputeBeamEngine, c, v)
+
+
+def test_recompute_counters_stay_zero_while_untraced(recompute_engine,
+                                                     recompute_totals):
+    engine, q = recompute_engine
+    engine.search(q, k=5, beam_width=16)
+    engine.search(q, k=5, beam_width=16, dedup=False)
+    assert engine.last_stats["hops"] > 0
+    assert all(getattr(recompute_totals, c) == 0 for c in RECOMPUTE_COUNTERS)
+
+
+@pytest.mark.parametrize("dedup", [True, False])
+def test_recompute_spans_and_counters_while_tracing(
+        recompute_engine, recompute_totals, tmp_path, dedup):
+    """Inside a profiler the engine's search opens `recompute.search_many`
+    around `recompute.entry` and, per hop, `recompute.dedup` (with the
+    cache), `recompute.encode` and `recompute.score`, in that order; the
+    class totals equal the search's own `last_stats`."""
+    engine, q = recompute_engine
+    with _session(all_threads=True) as prof:
+        ids, _ = engine.search(q, k=5, beam_width=16, dedup=dedup)
+    assert ids.shape == (6, 5)
+    stats = engine.last_stats
+    ann = _annotations(prof, tmp_path)
+    outer = [a for a in ann if a[0] == "recompute.search_many"]
+    assert len(outer) == 1
+    inner = sorted((a for a in ann if a[0].startswith("recompute.")
+                    and a is not outer[0]), key=lambda a: a[1])
+    assert all(_inside(a, outer[0]) for a in inner)
+    hop = (["recompute.dedup"] if dedup else []) + ["recompute.encode",
+                                                    "recompute.score"]
+    assert [a[0] for a in inner] == ["recompute.entry"] + hop * stats["hops"]
+    for a, b in zip(inner, inner[1:]):
+        assert a[2] <= b[1]
+    t = recompute_totals
+    assert t.hops == stats["hops"] and t.traced_queries == 6
+    assert t.encoded_rows == stats["encoded_rows"]
+    if dedup:
+        assert 0 < t.misses == stats["misses"] <= t.encoded_rows
+    else:
+        assert t.misses == t.encoded_rows == stats["slots"]
